@@ -9,12 +9,24 @@
    path's shapes (bf16 and float32), then timed with CUDA events (L2 flushed
    before every launch) beside the plain version, one library call computing
    the same function, and the least time the card could take (bound).
-4. Main path: a PagedLLMEngine serving Llama-3-8B at full width and depth
-   (random weights from a seed) answers 8 concurrent requests; the kernel
-   launch counters are zeroed just before and read just after, and every
-   decode step of every layer must have gone through the kernel. Then one
-   decode step through forward_paged on the gather path and on the kernel
-   path, from copies of the same pool, must agree.
+4. Serving path: a PagedLLMEngine serving Llama-3-8B at full width and
+   depth (random weights from a seed) answers 8 concurrent requests; the
+   paged kernel's launch counter is zeroed just before and read just after,
+   and every decode step of every layer must have gone through the kernel.
+   Then one decode step through forward_paged on the gather path and on the
+   kernel path, from copies of the same pool, must agree, and a profile of
+   that decode step.
+5. Flash kernels: forward, dQ and dK/dV each against its plain version
+   (bf16 and float32; causal and not; GQA 4 at head dim 64 and 128; ragged
+   S 1, 100, 1000, 2048), then timed at the trainer's shapes beside the
+   plain version, SDPA and the bound.
+6. Training path: Llama-3.2-1B at full width and depth (bf16, remat "full",
+   random weights from a seed) takes 5 AdamW steps on one [4, 2048] batch;
+   the three flash counters are zeroed just before and read just after, and
+   each step must have launched the forward 2 L times (remat runs it again)
+   and each backward kernel L times. Then loss and gradient norm through the
+   flash kernels against dense attention from the same parameters, and a
+   profile of one train step.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {...}}. Exits non-zero, before any result, without a
@@ -23,6 +35,7 @@ CUDA device; any failed check raises.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -35,8 +48,10 @@ import torch.nn.functional as F
 
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.serve.llm_paged import PagedLLMConfig, PagedLLMEngine
+from ray_tpu_torch.train import spmd
 
 SEED = 0
 DEVICE = torch.device("cuda", 0)
@@ -51,9 +66,53 @@ NEW_TOKENS = 32
 KERNEL_LENGTHS = [1, 37, 300, 555, 1024, 1031, 1999, 2048]  # ragged, 1, full table
 LOGIT_REL_TOL = 5e-2  # gather path casts probs to bf16 before PV, the kernel keeps f32
 
+# training path: Llama-3.2-1B, B 4 x S 2048
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 5
+# flash checks: (B, S, Hq, Hkv, D); GQA 4 at D 64 as the trainer has it, ragged S
+# (1, 100 and 1000 are not multiples of the 64-row tile), one D 128 case
+FLASH_SHAPES = [(2, 1, 8, 2, 64), (2, 100, 8, 2, 64), (2, 1000, 8, 2, 64),
+                (1, 2048, 32, 8, 64), (1, 1000, 8, 2, 128)]
+# flash kernel vs plain. float32: both sides float32, sums reordered; atol
+# 2e-5 * max(1, max |plain|) elementwise. bf16: the kernel rounds P and dS to
+# bf16 (relative error up to 2^-9 each) before its tensor-core products, the
+# plain version keeps them float32, and both round the output to bf16. The
+# outputs are averages whose size falls along the sequence, so the bf16 check
+# is per row (the last dim, D, at each batch, position and head):
+# |got - plain| <= 1e-2 |plain| + 1e-4 in the 2-norm, five bf16 ulps; the
+# H100 gave at most 5.6e-3. The 1e-4 floor is for rows that are zero in
+# exact arithmetic (dQ of the first row when causal).
+# lse is float32 on both sides (values up to ~log S + max).
+FLASH_F32_ATOL = 2e-5
+FLASH_BF16_ROW_RTOL, FLASH_BF16_ROW_ATOL = 1e-2, 1e-4
+LSE_ATOL = 1e-4
+# training agreement, flash kernels vs dense attention from the same params.
+# The dense path rounds its scores to bf16 before the softmax and its
+# probabilities to bf16 before PV (as the JAX model does); the kernels keep
+# the scores float32 and round P and dS to bf16 before their products. On
+# the H100 the loss differed by 9.2e-7 and the global grad norm by 3.6e-5
+# relative; the limits are six to eight times that. The gradients of wq, wk
+# and wv reach the parameters only through dQ, dK and dV and are held leaf
+# by leaf as |g_flash - g_dense| / |g_dense|: measured 1.41e-2, 1.22e-2 and
+# 3.9e-3 (the dense path's bf16 scores reach wq and wk through dS, and wv
+# only through P), limits about two and a half times that.
+TRAIN_LOSS_REL_TOL, TRAIN_GRAD_NORM_REL_TOL = 6e-6, 3e-4
+TRAIN_QKV_GRAD_REL_TOL = {"wq": 3.5e-2, "wk": 3e-2, "wv": 1e-2}
+FLASH_DTYPES = (torch.bfloat16, torch.float32)
+FLASH_OUTPUTS = {"flash_fwd": ("o",), "flash_bwd_dq": ("dq",), "flash_bwd_dkv": ("dk", "dv")}
+FLASH_KERNELS = {  # name: (TPU kernel it replaces, tensor-core products per (q, k) pair)
+    "flash_fwd": ("ray_tpu/ops/flash_attention.py:33", 2),
+    "flash_bwd_dq": ("ray_tpu/ops/flash_attention.py:102", 3),
+    "flash_bwd_dkv": ("ray_tpu/ops/flash_attention.py:136", 4),
+}
+
 
 def log(card: str, what: str, **numbers) -> None:
     print(json.dumps({"what": what, **numbers, "card": card}), flush=True)
+
+
+def flash_launches() -> dict:
+    return {"flash_fwd": fa.fwd_launches, "flash_bwd_dq": fa.bwd_dq_launches,
+            "flash_bwd_dkv": fa.bwd_dkv_launches}
 
 
 def time_ms(fn, flush: torch.Tensor, iters: int = 50, warmup: int = 5) -> float:
@@ -283,6 +342,20 @@ def decode_agreement_phase(card: str, cfg: llama.LlamaConfig, params) -> None:
                                                      lengths, BLOCK))
 
 
+def device_events(prof) -> tuple[list, dict]:
+    """The profiled kernels with device time, and the device time (ms) under
+    each user annotation, such as the optimizer's step. An annotation's time
+    is that of kernels already in the list, so it is kept apart."""
+    dev, marked = [], {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            if e.is_user_annotation:
+                marked[e.key] = e.self_device_time_total / 1e3
+            else:
+                dev.append(e)
+    return dev, marked
+
+
 def profile_decode(card: str, step, steps: int = 5) -> None:
     """Where a batch-8 decode step's time goes: host wall per step, device busy
     time per step from torch.profiler, and the kernels that take it."""
@@ -300,8 +373,7 @@ def profile_decode(card: str, step, steps: int = 5) -> None:
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    dev, _ = device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3 / steps
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:10]
     log(card, "decode step breakdown (forward_paged, batch 8, kernel path)",
@@ -310,6 +382,255 @@ def profile_decode(card: str, step, steps: int = 5) -> None:
         device_launches_per_step=sum(e.count for e in dev) / steps,
         top=[{"name": e.key[:70], "ms_per_step": e.self_device_time_total / 1e3 / steps,
               "calls_per_step": e.count / steps} for e in top])
+
+
+def flash_inputs(dtype, B, S, Hq, Hkv, D, seed: int):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(DEVICE).to(dtype)
+
+    return t(B, S, Hq, D), t(B, S, Hkv, D), t(B, S, Hkv, D), t(B, S, Hq, D)
+
+
+def flash_err(got, ref) -> dict:
+    """The largest abs difference, the largest per-row relative difference
+    (2-norm over the last dim) and whether the dtype's rule above holds."""
+    got, want = got.float(), ref.float()
+    diff = (got - want).abs().max().item()
+    row_err = torch.linalg.vector_norm(got - want, dim=-1)
+    row_ref = torch.linalg.vector_norm(want, dim=-1)
+    if ref.dtype == torch.float32:
+        ok = diff <= FLASH_F32_ATOL * max(1.0, want.abs().max().item())
+    else:
+        ok = bool((row_err <= FLASH_BF16_ROW_RTOL * row_ref + FLASH_BF16_ROW_ATOL).all())
+    # relative to max(|plain|, 1e-2) per row, so rows that are zero stay finite
+    rel = (row_err / row_ref.clamp(min=FLASH_BF16_ROW_ATOL / FLASH_BF16_ROW_RTOL)).max().item()
+    return {"max_abs_err": diff, "max_row_rel_err": rel, "ok": ok}
+
+
+def flash_bound(name: str, B, S, Hq, Hkv, D, item: int) -> tuple[float, str]:
+    """Least time for one causal call: each input read once and each output
+    written once, against the tensor-core products over the S (S + 1) / 2
+    live (query, key) pairs at the bf16 peak."""
+    ops = 2 * FLASH_KERNELS[name][1] * B * Hq * D * (S * (S + 1) // 2)
+    qb, kvb, row = B * S * Hq * D * item, B * S * Hkv * D * item, B * Hq * S * 4
+    nbytes = {"flash_fwd": 2 * qb + 2 * kvb + row,            # q, k, v -> o, lse
+              "flash_bwd_dq": 3 * qb + 2 * kvb + 2 * row,     # q, k, v, dO, lse, delta -> dq
+              "flash_bwd_dkv": 2 * qb + 4 * kvb + 2 * row}[name]  # ... -> dk, dv
+    t_ops, t_bytes = ops / PEAK_FLOPS[torch.bfloat16], nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def flash_kernel_phase(card: str) -> list[dict]:
+    """Each flash kernel against its plain version on the same inputs (the
+    backward ones fed the plain forward's lse and delta), then timed at the
+    trainer's shapes."""
+    errs = {n: {d: {"max_abs_err": 0.0, "max_row_rel_err": 0.0} for d in FLASH_DTYPES}
+            for n in FLASH_KERNELS}
+    failed = []
+    for dtype in FLASH_DTYPES:
+        for shape in FLASH_SHAPES:
+            for causal in (True, False):
+                q, k, v, do = flash_inputs(dtype, *shape, seed=SEED)
+                o, lse = fa.flash_fwd(q, k, v, causal)
+                torch.cuda.synchronize()
+                o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, causal)
+                lse_err = (lse - lse_ref).abs().max().item()
+                delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2).contiguous()
+                dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal)
+                dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
+                torch.cuda.synchronize()
+                dk_ref, dv_ref = fa.flash_bwd_dkv_ref(q, k, v, do, lse_ref, delta, causal)
+                got = {"o": flash_err(o, o_ref),
+                       "dq": flash_err(dq, fa.flash_bwd_dq_ref(q, k, v, do, lse_ref, delta,
+                                                               causal)),
+                       "dk": flash_err(dk, dk_ref), "dv": flash_err(dv, dv_ref)}
+                for n, outs in FLASH_OUTPUTS.items():
+                    for key, worst in errs[n][dtype].items():
+                        errs[n][dtype][key] = max([worst] + [got[out][key] for out in outs])
+                log(card, "flash kernels check", dtype=str(dtype), shape=shape, causal=causal,
+                    errors=got, lse_max_abs_err=lse_err, lse_atol=LSE_ATOL,
+                    rule=(f"max abs <= {FLASH_F32_ATOL} * max(1, max |plain|)"
+                          if dtype == torch.float32 else
+                          f"per row |d| <= {FLASH_BF16_ROW_RTOL} |plain| + {FLASH_BF16_ROW_ATOL}"))
+                failed += [(str(dtype), shape, causal, out) for out, e in got.items()
+                           if not e["ok"]]
+                if lse_err > LSE_ATOL:
+                    failed.append((str(dtype), shape, causal, "lse"))
+                del q, k, v, do, o, lse, o_ref, lse_ref, delta, dq, dk, dv, dk_ref, dv_ref
+    assert not failed, failed
+
+    cfg = llama.LlamaConfig.llama_1b()
+    shape = (TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads, cfg.hd)
+    q, k, v, do = flash_inputs(torch.bfloat16, *shape, seed=SEED)
+    o, lse = fa.flash_fwd(q, k, v, True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    # the library yardstick: SDPA in its own [B, H, S, D] layout (transposed
+    # here, outside the timed calls); its backward gives dq, dk and dv at once
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_err = (lib_out.detach().transpose(1, 2).float() - o.float()).abs().max().item()
+    dot = do.transpose(1, 2).contiguous()
+    calls = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, True),
+                      lambda: fa.flash_fwd_ref(q, k, v, True)),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True),
+                         lambda: fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, True)),
+        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True),
+                          lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, True)),
+    }
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEVICE)
+    with torch.no_grad():
+        lib_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), flush)
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                                     retain_graph=True), flush)
+    entries = []
+    for name, (kernel, plain) in calls.items():
+        t = {"kernel_ms": time_ms(kernel, flush), "plain_ms": time_ms(plain, flush, 5, 1),
+             "kernel_ms_repeat": time_ms(kernel, flush)}
+        t["bound_ms"], t["bound_by"] = flash_bound(name, *shape, q.element_size())
+        t["library_ms"] = lib_fwd_ms if name == "flash_fwd" else lib_bwd_ms
+        library = ("SDPA forward, is_causal, enable_gqa" if name == "flash_fwd" else
+                   "SDPA backward: dq, dk and dv in one call")
+        log(card, f"{name} timing (trainer shapes)", dtype="bf16", causal=True,
+            shapes=dict(zip("B S Hq Hkv D".split(), shape)), library=library,
+            library_fwd_max_abs_err=lib_err, **t)
+        entries.append({
+            "name": name, "route": "cuda", "source": "ray_tpu_torch/csrc/flash_attention.cu",
+            "replaces": FLASH_KERNELS[name][0],
+            "max_abs_err": errs[name][torch.bfloat16]["max_abs_err"],
+            "max_abs_err_bf16": errs[name][torch.bfloat16]["max_abs_err"],
+            "max_row_rel_err_bf16": errs[name][torch.bfloat16]["max_row_rel_err"],
+            "max_abs_err_f32": errs[name][torch.float32]["max_abs_err"],
+            "max_row_rel_err_f32": errs[name][torch.float32]["max_row_rel_err"],
+            "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "library": library,
+        })
+    return entries
+
+
+def train_batch(cfg: llama.LlamaConfig):
+    rng = np.random.default_rng(SEED + 3)
+    tokens = rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+    targets = np.concatenate([tokens[:, 1:], np.full((TRAIN_BATCH, 1), -100)], axis=1)
+    return torch.from_numpy(tokens).to(DEVICE), torch.from_numpy(targets).to(DEVICE)
+
+
+def model_flops_per_step(cfg: llama.LlamaConfig) -> float:
+    """6 N per token for the weight products (N without the input embedding,
+    a lookup) plus the causal attention products, forward and backward,
+    without remat's recompute."""
+    n = llama.param_count_analytic(cfg) - cfg.vocab_size * cfg.hidden_size
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    attn = 3 * 4 * TRAIN_BATCH * cfg.num_heads * cfg.hd * pairs * cfg.num_layers
+    return 6 * n * TRAIN_BATCH * TRAIN_SEQ + attn
+
+
+def trainer_phase(card: str, cfg: llama.LlamaConfig):
+    """The training path: init_state and make_train_step on Llama-3.2-1B,
+    TRAIN_STEPS steps on one fixed batch, counting the flash launches."""
+    opt = spmd.make_optimizer(warmup=1)
+    t0 = time.monotonic()
+    state = spmd.init_state(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), opt,
+                            device=DEVICE)
+    torch.cuda.synchronize()
+    t_init = time.monotonic() - t0
+    step = spmd.make_train_step(cfg, opt, device=DEVICE)
+    tokens, targets = train_batch(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, times = [], [], []
+    fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0  # the training path's only
+    for _ in range(TRAIN_STEPS):
+        t1 = time.monotonic()
+        state, m = step(state, tokens, targets)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t1)
+    launches = flash_launches()
+    L = cfg.num_layers
+    want = {"flash_fwd": 2 * L * TRAIN_STEPS, "flash_bwd_dq": L * TRAIN_STEPS,
+            "flash_bwd_dkv": L * TRAIN_STEPS}
+    assert launches == want, (launches, want)
+    assert state.step == TRAIN_STEPS
+    assert np.isfinite(losses).all() and np.isfinite(norms).all(), (losses, norms)
+    assert losses[-1] < losses[0], losses
+    step_s = statistics.median(times[1:])
+    flops = model_flops_per_step(cfg)
+    log(card, "training path: Llama-3.2-1B train steps", layers=L, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, remat=cfg.remat_policy if cfg.remat else "none",
+        param_count=llama.param_count(state.params), init_s=t_init, losses=losses,
+        grad_norms=norms, step_s=times, step_ms_median_2_to_5=1e3 * step_s,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s, model_flops_per_step=flops,
+        train_mfu=flops / step_s / PEAK_FLOPS[torch.bfloat16],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, flash_launches=launches,
+        launches_per_step={n: c / TRAIN_STEPS for n, c in launches.items()})
+    return launches, state, step, (tokens, targets)
+
+
+def training_agreement_phase(card: str, cfg: llama.LlamaConfig, params, batch) -> None:
+    """loss_fn and its backward from the same parameters, once through the
+    flash kernels (auto_attention) and once through dense attention."""
+    tensors = spmd.leaves(params)
+    at = {n: next(i for i, t in enumerate(tensors) if t is params["layers"][n])
+          for n in TRAIN_QKV_GRAD_REL_TOL}
+    got, qkv_grads = {}, {}
+    for label, attn_fn in (("flash", None), ("dense", llama.attention)):
+        before = flash_launches()
+        loss = llama.loss_fn(params, *batch, cfg, attn_fn)
+        grads = torch.autograd.grad(loss, tensors)
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]))
+        got[label] = (loss.item(), norm.item(),
+                      {n: c - before[n] for n, c in flash_launches().items()})
+        qkv_grads[label] = {n: grads[i].float() for n, i in at.items()}
+        del loss, grads
+    assert all(c == 0 for c in got["dense"][2].values()), got
+    assert all(c > 0 for c in got["flash"][2].values()), got
+    rel_loss = abs(got["flash"][0] - got["dense"][0]) / abs(got["dense"][0])
+    rel_norm = abs(got["flash"][1] - got["dense"][1]) / abs(got["dense"][1])
+    rel_qkv = {n: (torch.linalg.vector_norm(qkv_grads["flash"][n] - g)
+                   / torch.linalg.vector_norm(g)).item()
+               for n, g in qkv_grads["dense"].items()}
+    assert np.isfinite([got["flash"][:2], got["dense"][:2]]).all(), got
+    log(card, "training agreement: flash kernels vs dense attention", loss_flash=got["flash"][0],
+        loss_dense=got["dense"][0], loss_rel_diff=rel_loss, loss_rel_tol=TRAIN_LOSS_REL_TOL,
+        grad_norm_flash=got["flash"][1], grad_norm_dense=got["dense"][1],
+        grad_norm_rel_diff=rel_norm, grad_norm_rel_tol=TRAIN_GRAD_NORM_REL_TOL,
+        grad_rel_diff=rel_qkv, grad_rel_tol=TRAIN_QKV_GRAD_REL_TOL)
+    assert rel_loss <= TRAIN_LOSS_REL_TOL and rel_norm <= TRAIN_GRAD_NORM_REL_TOL, got
+    assert all(rel_qkv[n] <= tol for n, tol in TRAIN_QKV_GRAD_REL_TOL.items()), rel_qkv
+
+
+def profile_train_step(card: str, step, state, batch) -> None:
+    """Where one train step's time goes: host wall, device busy time from
+    torch.profiler, the top kernels and the flash kernels' share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        state, _ = step(state, *batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.monotonic() - t0)
+    dev, marked = device_events(prof)
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    flash_ms = sum(e.self_device_time_total for e in dev if "flash_" in e.key) / 1e3
+    gemm_ms = sum(e.self_device_time_total for e in dev
+                  if e.key.startswith("nvjet") or "gemm" in e.key) / 1e3
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:12]
+    log(card, "train step breakdown (Llama-3.2-1B, B 4 x S 2048, under the profiler)",
+        wall_ms=wall_ms, device_busy_ms=busy_ms if dev else "not measured",
+        device_idle_share=1 - busy_ms / wall_ms if dev else "not measured",
+        flash_ms=flash_ms if dev else "not measured",
+        flash_share_of_busy=flash_ms / busy_ms if dev else "not measured",
+        cublas_gemm_ms=gemm_ms if dev else "not measured", annotated_ms=marked,
+        device_launches=sum(e.count for e in dev),
+        top=[{"name": e.key[:70], "ms": e.self_device_time_total / 1e3, "calls": e.count}
+             for e in top])
 
 
 def main() -> int:
@@ -326,8 +647,23 @@ def main() -> int:
     kernels = [kernel_phase(card, cfg)]
     params, kernels[0]["launches"] = main_path_phase(card, cfg)
     decode_agreement_phase(card, cfg, params)
-    log(card, "smoke wall", seconds=time.monotonic() - t_start,
-        param_count=llama.param_count_analytic(cfg))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_serve = time.monotonic() - t_start
+
+    flash = flash_kernel_phase(card)
+    torch.cuda.empty_cache()
+    cfg_train = llama.LlamaConfig.llama_1b()
+    launches, state, step, batch = trainer_phase(card, cfg_train)
+    for entry in flash:
+        entry["launches"] = launches[entry["name"]]
+    training_agreement_phase(card, cfg_train, state.params, batch)
+    profile_train_step(card, step, state, batch)
+    kernels += flash
+    log(card, "smoke wall", seconds=time.monotonic() - t_start, serving_seconds=t_serve,
+        param_count_serving=llama.param_count_analytic(cfg),
+        param_count_training=llama.param_count_analytic(cfg_train))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -5,6 +5,11 @@ models and engines in PyTorch, with every Pallas TPU kernel replaced by a
 kernel written by hand for NVIDIA Hopper (``csrc/``). It imports neither
 ``jax`` nor any module of ``ray_tpu``: what it needs from there is copied.
 
+Two paths so far: serving (``serve.llm_paged.PagedLLMEngine`` ->
+``models.llama.forward_paged`` -> the paged decode kernel) and training
+(``train.spmd.make_train_step`` -> ``models.llama.loss_fn`` -> the flash
+attention forward and backward kernels).
+
 Entry points run on the first CUDA device unless the caller passes
 ``device="cpu"`` (the CPU tests do). With no CUDA device and no explicit
 CPU request they raise; nothing falls back to the CPU silently.
@@ -13,6 +18,8 @@ CPU request they raise; nothing falls back to the CPU silently.
 from __future__ import annotations
 
 import torch
+
+from ray_tpu_torch import train
 
 __version__ = "0.1.0"
 

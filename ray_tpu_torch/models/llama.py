@@ -1,32 +1,44 @@
-"""Llama-family transformer in PyTorch: the serving path of ray_tpu.models.llama.
+"""Llama-family transformer in PyTorch: the training and serving paths of
+ray_tpu.models.llama.
 
 The parameter tree keeps the JAX package's layout, so weights convert with
 no transposes (``from_jax``): a dict with ``embed [V, h]``, ``final_norm
 [h]``, ``lm_head [h, V]`` (untied configs) and ``layers``, whose entries are
 stacked over a leading ``[L, ...]`` axis and applied as ``x @ W`` with ``W``
 ``[in, out]``. Norm weights are float32; everything else is ``cfg.dtype``.
+Each pass takes one ``unbind`` of the stacked leaves (``_layers``), and
+training and serving share one block (``_qkv``, ``_mlp``, ``_logits``).
 
 Numerics follow the reference op for op: RMSNorm accumulates in float32,
 rotary embeddings rotate split halves with float32 angles, attention scores
 and softmax are float32 and the probabilities are cast back to the query's
 dtype before the PV product, logits come out in float32.
 
-Unlike the JAX functions, which return new caches, ``forward_paged`` and
-``forward_with_cache`` write the new K/V into the pool or cache they are
-given, in place, and hand the same dict back.
+Training: ``forward`` / ``loss_fn`` with ``auto_attention``, which sends
+causal attention at S >= 1024 on a CUDA tensor through the flash kernels
+(``ops/flash_attention.py``) and everything else through dense
+``attention``; ``cfg.remat`` recomputes each block in the backward.
+
+Serving: unlike the JAX functions, which return new caches,
+``forward_paged`` and ``forward_with_cache`` write the new K/V into the pool
+or cache they are given, in place, and hand the same dict back.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ray_tpu_torch import resolve_device
+from ray_tpu_torch.ops.flash_attention import flash_attention
 from ray_tpu_torch.ops.paged_attention import paged_decode_attention
 
 NEG_INF = -1e30
@@ -47,6 +59,8 @@ class LlamaConfig:
     tie_embeddings: bool = False
     dtype: Any = torch.bfloat16
     remat: bool = True
+    # "full": recompute the whole block in the backward; "dots": keep the
+    # weight products (aten.mm outputs) and recompute the rest
     remat_policy: str = "full"
 
     @property
@@ -156,6 +170,11 @@ def from_jax(params_np: dict, cfg: LlamaConfig, device=None) -> dict:
     return out
 
 
+def param_count(params) -> int:
+    return sum(t.numel() for t in params["layers"].values()) + sum(
+        t.numel() for name, t in params.items() if name != "layers")
+
+
 def param_count_analytic(cfg: LlamaConfig) -> int:
     h, m, L, v = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers, cfg.vocab_size
     hd, nh, nkv = cfg.hd, cfg.num_heads, cfg.num_kv_heads
@@ -184,19 +203,29 @@ def rope(x, positions, theta):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
-def _mlp(x, layer, cfg: LlamaConfig, i: int):
-    y = rms_norm(x, layer["mlp_norm"][i], cfg.rms_eps)
-    gate = F.silu(y @ layer["w_gate"][i])
-    return x + ((gate * (y @ layer["w_up"][i])) @ layer["w_down"][i])
+def _layers(params) -> list[dict]:
+    """One weight dict per layer, from a single ``unbind`` of each stacked
+    ``[L, ...]`` leaf. Under autograd, unbind's backward is one ``stack`` per
+    leaf, where indexing ``leaf[i]`` per layer would allocate a zero gradient
+    of the whole stacked leaf for every layer."""
+    names = list(params["layers"])
+    return [dict(zip(names, ws))
+            for ws in zip(*(params["layers"][n].unbind(0) for n in names))]
 
 
-def _qkv(x, layer, cfg: LlamaConfig, i: int, positions):
+def _mlp(x, layer, cfg: LlamaConfig):
+    y = rms_norm(x, layer["mlp_norm"], cfg.rms_eps)
+    gate = F.silu(y @ layer["w_gate"])
+    return x + ((gate * (y @ layer["w_up"])) @ layer["w_down"])
+
+
+def _qkv(x, layer, cfg: LlamaConfig, positions):
     B, S, _ = x.shape
     hd, nh, nkv = cfg.hd, cfg.num_heads, cfg.num_kv_heads
-    y = rms_norm(x, layer["attn_norm"][i], cfg.rms_eps)
-    q = (y @ layer["wq"][i]).reshape(B, S, nh, hd)
-    k = (y @ layer["wk"][i]).reshape(B, S, nkv, hd)
-    v = (y @ layer["wv"][i]).reshape(B, S, nkv, hd)
+    y = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
+    q = (y @ layer["wq"]).reshape(B, S, nh, hd)
+    k = (y @ layer["wk"]).reshape(B, S, nkv, hd)
+    v = (y @ layer["wv"]).reshape(B, S, nkv, hd)
     return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
 
 
@@ -219,6 +248,90 @@ def _cached_attention(q, k_cache, v_cache, lengths, q_positions):
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v_cache)
     return out.reshape(B, S, Hq, D)
+
+
+# ---------------------------------------------------------------- training
+def attention(q, k, v, causal: bool = True):
+    """Dense GQA attention. q [B,S,Hq,D], k/v [B,S,Hkv,D]."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, S, Hkv, Hq // Hkv, D)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() / math.sqrt(D)
+    if causal:
+        i = torch.arange(S, device=q.device)
+        scores = torch.where(i[:, None] >= i[None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhgqk,bkhd->bqhgd", probs, v).reshape(B, S, Hq, D)
+
+
+def auto_attention(q, k, v, causal: bool = True):
+    """The flash kernels for causal attention at S >= 1024 on a CUDA tensor,
+    dense attention otherwise. The crossover is the reference's, chosen on a
+    TPU; it is not measured on an H100 yet."""
+    if causal and q.is_cuda and q.shape[1] >= 1024:
+        return flash_attention(q, k, v, causal=True)
+    return attention(q, k, v, causal=causal)
+
+
+def _block(cfg: LlamaConfig, x, layer, positions, attn_fn):
+    B, S, _ = x.shape
+    q, k, v = _qkv(x, layer, cfg, positions)
+    x = x + (attn_fn(q, k, v).reshape(B, S, -1) @ layer["wo"])
+    return _mlp(x, layer, cfg)
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat "dots": keep the outputs of
+    ``aten.mm`` (the weight products; the batched attention einsums run as
+    ``bmm``), recompute everything else. The counterpart of JAX's
+    ``dots_with_no_batch_dims_saveable``."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def forward(params, tokens, cfg: LlamaConfig, attn_fn=None, positions=None):
+    """Token ids [B, S] -> logits [B, S, vocab] (float32). With ``cfg.remat``
+    each block runs under ``torch.utils.checkpoint`` and is recomputed in
+    the backward, wholly ("full") or but for its weight products ("dots")."""
+    attn_fn = attn_fn or auto_attention
+    B, S = tokens.shape
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+    remat = {}
+    if cfg.remat:
+        if cfg.remat_policy not in ("full", "dots"):
+            raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+        if cfg.remat_policy == "dots":
+            remat["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                    _save_weight_products)
+    x = params["embed"][tokens.long()].to(cfg.dtype)
+    for layer in _layers(params):
+        if cfg.remat:
+            x = checkpoint(_block, cfg, x, layer, positions, attn_fn, use_reentrant=False,
+                           **remat)
+        else:
+            x = _block(cfg, x, layer, positions, attn_fn)
+    return _logits(params, x, cfg)
+
+
+def loss_fn(params, tokens, targets, cfg: LlamaConfig, attn_fn=None):
+    """Next-token cross-entropy, mean over targets != -100 (ignored)."""
+    logits = forward(params, tokens, cfg, attn_fn)
+    valid = targets != -100
+    tsafe = torch.where(valid, targets, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, tsafe[..., None])[..., 0]
+    nll = (logz - gold) * valid
+    return nll.sum() / valid.sum().clamp(min=1)
+
+
+def flops_per_token(cfg: LlamaConfig) -> float:
+    """Approximate fwd+bwd FLOPs/token (6N + attention terms), as the JAX
+    package counts them. Kept for parity with that package only: the port's
+    ``train_mfu`` counts model FLOPs with ``chip_smoke.model_flops_per_step``
+    (6N without the embedding lookup, plus the causal attention products)."""
+    return 6 * param_count_analytic(cfg) + 12 * cfg.num_layers * cfg.hidden_size * cfg.max_seq_len
 
 
 # ---------------------------------------------------------------- KV-cached inference
@@ -269,10 +382,9 @@ def forward_paged(params, tokens, cfg: LlamaConfig, pool: dict, tables, lengths,
     blk_off = (positions % block_size).long()
     x = params["embed"][tokens.long()].to(cfg.dtype)
     hd, nh, nkv = cfg.hd, cfg.num_heads, cfg.num_kv_heads
-    layer = params["layers"]
-    for i in range(cfg.num_layers):
+    for i, layer in enumerate(_layers(params)):
         kp, vp = pool["k"][i], pool["v"][i]  # [Hkv, NB, BS, D] views
-        q, k, v = _qkv(x, layer, cfg, i, positions)
+        q, k, v = _qkv(x, layer, cfg, positions)
         # head-major scatter: kp[h, blk_idx[b,s], blk_off[b,s]] = k[b,s,h]
         kp[:, blk_idx, blk_off] = k.permute(2, 0, 1, 3).to(kp.dtype)
         vp[:, blk_idx, blk_off] = v.permute(2, 0, 1, 3).to(vp.dtype)
@@ -285,8 +397,8 @@ def forward_paged(params, tokens, cfg: LlamaConfig, pool: dict, tables, lengths,
             v_seq = vp[:, table_idx].permute(1, 2, 3, 0, 4).reshape(
                 B, max_blocks * block_size, nkv, hd)
             o = _cached_attention(q, k_seq, v_seq, lengths, positions)
-        x = x + (o.reshape(B, S, nh * hd) @ layer["wo"][i])
-        x = _mlp(x, layer, cfg, i)
+        x = x + (o.reshape(B, S, nh * hd) @ layer["wo"])
+        x = _mlp(x, layer, cfg)
     return _logits(params, x, cfg), pool
 
 
@@ -310,12 +422,11 @@ def forward_with_cache(params, tokens, cfg: LlamaConfig, cache: dict, lengths):
                                                 device=tokens.device)[None, :]
     x = params["embed"][tokens.long()].to(cfg.dtype)
     nh, hd = cfg.num_heads, cfg.hd
-    layer = params["layers"]
-    for i in range(cfg.num_layers):
-        q, k, v = _qkv(x, layer, cfg, i, positions)
+    for i, layer in enumerate(_layers(params)):
+        q, k, v = _qkv(x, layer, cfg, positions)
         k_cache = _write_cache(cache["k"][i], k, lengths)
         v_cache = _write_cache(cache["v"][i], v, lengths)
         o = _cached_attention(q, k_cache, v_cache, lengths, positions)
-        x = x + (o.reshape(B, S, nh * hd) @ layer["wo"][i])
-        x = _mlp(x, layer, cfg, i)
+        x = x + (o.reshape(B, S, nh * hd) @ layer["wo"])
+        x = _mlp(x, layer, cfg)
     return _logits(params, x, cfg), cache

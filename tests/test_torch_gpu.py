@@ -1,13 +1,23 @@
 """Card tests of ray_tpu_torch: the Hopper kernels against their plain
-versions, and an engine run that goes through them. Each test needs a CUDA
-device and skips without one (decided in a fixture, never at import).
+versions, and engine and trainer runs that go through them. Each test needs
+a CUDA device and skips without one (decided in a fixture, never at import).
 
 Run on the card with:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
-Tolerances: float32 atol 2e-5 (the same float32 terms summed in another
-order); bfloat16 atol = rtol = 1e-2, about two bf16 ulps of the output,
-since both sides compute in float32 and round once at the end.
+Tolerances, paged decode: float32 atol 2e-5 (the same float32 terms summed
+in another order); bfloat16 atol = rtol = 1e-2, about two bf16 ulps of the
+output, since both sides compute in float32 and round once at the end.
+
+Flash kernels: float32 atol 2e-5 * max(1, max |plain|) elementwise (float32
+throughout, sums reordered). bfloat16 per row, the 2-norm over the last dim
+at each batch, position and head: |got - plain| <= 1e-2 |plain| + 1e-4. The
+kernel rounds P and dS to bf16 before its tensor-core products, the plain
+version keeps them float32, and both round the output to bf16; the outputs
+are averages whose size falls along the sequence, so one tensor-wide atol
+would be the size of most rows. The 1e-4 floor is for rows that are zero in
+exact arithmetic (dQ of the first row when causal). lse, float32 on both
+sides, atol 1e-4 (values up to ~log S + max score).
 """
 
 import numpy as np
@@ -15,8 +25,10 @@ import pytest
 import torch
 
 from ray_tpu_torch.models import llama
+from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.serve.llm_paged import PagedLLMConfig, PagedLLMEngine
+from ray_tpu_torch.train import spmd
 
 TOL = {torch.float32: dict(atol=2e-5, rtol=0.0), torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
 
@@ -84,3 +96,111 @@ def test_paged_engine_decodes_through_the_kernel(cuda):
         assert steps > 0 and pa.launches - before == cfg.num_layers * steps
     finally:
         eng.shutdown()
+
+
+# ---------------------------------------------------------------- flash attention
+FLASH_F32_ATOL = 2e-5
+FLASH_BF16_ROW_RTOL, FLASH_BF16_ROW_ATOL = 1e-2, 1e-4
+
+
+def assert_flash_close(got, ref):
+    got, want = got.float(), ref.float()
+    if ref.dtype == torch.float32:
+        scale = max(1.0, want.abs().max().item())
+        torch.testing.assert_close(got, want, atol=FLASH_F32_ATOL * scale, rtol=0.0)
+        return
+    err = torch.linalg.vector_norm(got - want, dim=-1)
+    lim = FLASH_BF16_ROW_RTOL * torch.linalg.vector_norm(want, dim=-1) + FLASH_BF16_ROW_ATOL
+    worst = (err / lim).max().item()
+    print(f"bf16 flash rows: worst err / limit {worst:.4f}")  # shown with pytest -s
+    assert worst <= 1.0, f"{int((err > lim).sum())} rows over the limit; worst err / limit {worst}"
+
+
+def _flash_inputs(device, dtype, B, S, Hq, Hkv, D, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(device).to(dtype)
+
+    return t(B, S, Hq, D), t(B, S, Hkv, D), t(B, S, Hkv, D), t(B, S, Hq, D)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", [(2, 100, 8, 2, 64), (1, 1, 4, 4, 128),
+                                          (2, 257, 4, 1, 128), (1, 1000, 8, 2, 64)])
+def test_flash_kernels_match_plain(cuda, dtype, causal, B, S, Hq, Hkv, D):
+    q, k, v, do = _flash_inputs(cuda, dtype, B, S, Hq, Hkv, D)
+    before = (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert_flash_close(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0.0)
+    # the backward kernels against their plain versions on the same inputs
+    delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
+    torch.cuda.synchronize()
+    assert_flash_close(dq, fa.flash_bwd_dq_ref(q, k, v, do, lse_ref, delta, causal))
+    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(q, k, v, do, lse_ref, delta, causal)
+    assert_flash_close(dk, dk_ref)
+    assert_flash_close(dv, dv_ref)
+    assert (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == tuple(
+        n + 1 for n in before)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_through_function(cuda, dtype):
+    """Autograd through _FlashAttention on the card against the plain forward
+    and backward on the same inputs. The plain backward gets delta from the
+    Function's own output, as the Function forms it: with delta from an O
+    of another rounding, rows whose softmax is peaked (dQ, dK near zero by
+    cancellation) differ by far more than the kernels do."""
+    q, k, v, cot = _flash_inputs(cuda, dtype, 2, 300, 8, 2, 64, seed=1)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    out = fa.flash_attention(q, k, v)
+    grads = torch.autograd.grad((out.float() * cot.float()).sum(), (q, k, v))
+    q, k, v, out = (x.detach() for x in (q, k, v, out))
+    o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, True)
+    assert_flash_close(out, o_ref)
+    delta = (cot.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    ref = (fa.flash_bwd_dq_ref(q, k, v, cot, lse_ref, delta, True),
+           *fa.flash_bwd_dkv_ref(q, k, v, cot, lse_ref, delta, True))
+    for got, want in zip(grads, ref):
+        assert got.dtype == dtype
+        assert_flash_close(got, want)
+
+
+@pytest.mark.gpu
+def test_flash_rejects_what_it_cannot_take(cuda):
+    q, k, v, _ = _flash_inputs(cuda, torch.float32, 1, 16, 2, 2, 32)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_fwd(q, k, v, True)
+    q, k, v, _ = _flash_inputs(cuda, torch.float32, 1, 16, 2, 2, 64)
+    with pytest.raises(TypeError, match="must be"):
+        fa.flash_fwd(q, k.bfloat16(), v, True)
+
+
+@pytest.mark.gpu
+def test_train_step_goes_through_flash_kernels(cuda):
+    cfg = llama.LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                            num_layers=2, num_heads=4, num_kv_heads=2, max_seq_len=1024,
+                            dtype=torch.bfloat16, remat=True)
+    opt = spmd.make_optimizer(1e-3, warmup=1)
+    state = spmd.init_state(cfg, torch.Generator(cuda).manual_seed(0), opt, device=cuda)
+    step = spmd.make_train_step(cfg, opt, device=cuda)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 1024))
+    targets = np.concatenate([tokens[:, 1:], np.full((1, 1), -100)], axis=1)
+    before = (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    losses = []
+    for _ in range(3):
+        state, m = step(state, tokens, targets)
+        losses.append(m["loss"].item())
+        assert np.isfinite(m["grad_norm"].item())
+    L = cfg.num_layers
+    assert (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == (
+        before[0] + 3 * 2 * L, before[1] + 3 * L, before[2] + 3 * L)
+    assert state.step == 3 and losses[-1] < losses[0]

@@ -19,6 +19,8 @@ def test_no_module_imports_jax_or_ray_tpu():
     modules = sorted(m.name for m in pkgutil.walk_packages(ray_tpu_torch.__path__,
                                                            "ray_tpu_torch."))
     assert "ray_tpu_torch.ops.paged_attention" in modules
+    assert "ray_tpu_torch.ops.flash_attention" in modules
+    assert "ray_tpu_torch.train.spmd" in modules
     script = textwrap.dedent(f"""
         import importlib, sys
         for name in {modules!r}:
