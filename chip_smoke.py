@@ -4,7 +4,9 @@
 
 1. Device: the card's name, count, and nvidia-smi's name and power limit.
 2. Build: every kernel source under ray_tpu_torch/csrc, one nvcc each, in
-   parallel; build seconds and ptxas's registers / shared memory.
+   parallel; build seconds, each kernel's registers and spill bytes from
+   ptxas, and the bf16 forward's dynamic shared memory. The bf16 forward at
+   head dim 64 must not spill.
 3. Kernels: each kernel against its plain PyTorch version at the main
    path's shapes (bf16 and float32), then timed with CUDA events (L2 flushed
    before every launch) beside the plain version, one library call computing
@@ -17,9 +19,10 @@
    kernel path, from copies of the same pool, must agree, and a profile of
    that decode step.
 5. Flash kernels: forward, dQ and dK/dV each against its plain version
-   (bf16 and float32; causal and not; GQA 4 at head dim 64 and 128; ragged
-   S 1, 100, 1000, 2048), then timed at the trainer's shapes beside the
-   plain version, SDPA and the bound.
+   (bf16 and float32; causal and not; GQA 1 and 4 at head dim 64 and 128;
+   ragged S 1, 100, 127, 129, 1000, 2047, 2048), then timed at the
+   trainer's shapes beside the plain version, SDPA and the bound, with the
+   achieved TFLOP/s and the share of the bound.
 6. Training path: Llama-3.2-1B at full width and depth (bf16, remat "full",
    random weights from a seed) takes 5 AdamW steps on one [4, 2048] batch;
    the three flash counters are zeroed just before and read just after, and
@@ -35,8 +38,10 @@ CUDA device; any failed check raises.
 
 from __future__ import annotations
 
+import ctypes
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -69,9 +74,11 @@ LOGIT_REL_TOL = 5e-2  # gather path casts probs to bf16 before PV, the kernel ke
 # training path: Llama-3.2-1B, B 4 x S 2048
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 5
 # flash checks: (B, S, Hq, Hkv, D); GQA 4 at D 64 as the trainer has it, ragged S
-# (1, 100 and 1000 are not multiples of the 64-row tile), one D 128 case
-FLASH_SHAPES = [(2, 1, 8, 2, 64), (2, 100, 8, 2, 64), (2, 1000, 8, 2, 64),
-                (1, 2048, 32, 8, 64), (1, 1000, 8, 2, 128)]
+# (1, 100 and 1000 are not multiples of the 64-row tile; 127 and 129 sit one
+# under and one over the bf16 forward's 128-row tile), g 1, two D 128 cases
+FLASH_SHAPES = [(2, 1, 8, 2, 64), (2, 100, 8, 2, 64), (2, 127, 8, 2, 64), (2, 129, 8, 8, 64),
+                (2, 1000, 8, 2, 64), (1, 2048, 32, 8, 64), (1, 1000, 8, 2, 128),
+                (1, 2047, 8, 2, 128)]
 # flash kernel vs plain. float32: both sides float32, sums reordered; atol
 # 2e-5 * max(1, max |plain|) elementwise. bf16: the kernel rounds P and dS to
 # bf16 (relative error up to 2^-9 each) before its tensor-core products, the
@@ -141,16 +148,59 @@ def device_phase() -> tuple[str, str]:
     return name, smi
 
 
+def kernel_name(mangled: str) -> str:
+    """'_ZN<len><namespace><len>flash_fwd_bf16_kernelILi64EE...' ->
+    'flash_fwd_bf16_kernel<64>' (Itanium mangling: length-prefixed names)."""
+    rest, name = mangled[3:] if mangled.startswith("_ZN") else "", mangled
+    while rest[:1].isdigit():
+        n = re.match(r"\d+", rest).group(0)
+        name, rest = rest[len(n):len(n) + int(n)], rest[len(n) + int(n):]
+    args = re.match(r"I(.+?)EE", rest)
+    if not args:
+        return name
+    args = re.sub(r"Li(\d+)", r",\1", args.group(1)).replace("13__nv_bfloat16", "bf16")
+    return f"{name}<{args.replace('f,', 'float,').lstrip(',')}>"
+
+
+def ptxas_kernels(ptxas: str) -> dict:
+    """Each kernel's registers, stack frame and spill bytes from nvcc's
+    ``-Xptxas -v`` output, keyed ``name<template args>``."""
+    out, name = {}, None
+    for line in ptxas.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            name = kernel_name(m.group(1))
+            out.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and name:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
 def build_phase(card: str) -> None:
     t0 = time.monotonic()
     report = _build.build_all()
     log(card, "build", seconds=time.monotonic() - t0,
         nvcc_seconds={n: r["seconds"] for n, r in report.items()},
         cached=[n for n, r in report.items() if r["cached"]])
-    for name, info in report.items():
-        for line in info["ptxas"].splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}", flush=True)
+    kernels = {}
+    for info in report.values():
+        kernels.update(ptxas_kernels(info["ptxas"]))
+    log(card, "ptxas: registers, stack frame and spill bytes per kernel", kernels=kernels)
+    # the bf16 forward: its registers, dynamic shared memory and spills
+    smem = _build.load("flash_attention").flash_fwd_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    for D in (64, 128):
+        info = kernels[f"flash_fwd_bf16_kernel<{D}>"]
+        log(card, f"flash_fwd_bf16_kernel<{D}> resources", **info,
+            dynamic_smem_bytes=smem(D, fa._DTYPES[torch.bfloat16]))
+    assert kernels["flash_fwd_bf16_kernel<64>"]["spill_stores"] == 0, kernels
 
 
 def paged_inputs(dtype, cfg: llama.LlamaConfig, lengths, seed: int):
@@ -409,11 +459,16 @@ def flash_err(got, ref) -> dict:
     return {"max_abs_err": diff, "max_row_rel_err": rel, "ok": ok}
 
 
+def flash_ops(name: str, B, S, Hq, Hkv, D) -> int:
+    """The tensor-core products of one causal call, over the S (S + 1) / 2
+    live (query, key) pairs."""
+    return 2 * FLASH_KERNELS[name][1] * B * Hq * D * (S * (S + 1) // 2)
+
+
 def flash_bound(name: str, B, S, Hq, Hkv, D, item: int) -> tuple[float, str]:
     """Least time for one causal call: each input read once and each output
-    written once, against the tensor-core products over the S (S + 1) / 2
-    live (query, key) pairs at the bf16 peak."""
-    ops = 2 * FLASH_KERNELS[name][1] * B * Hq * D * (S * (S + 1) // 2)
+    written once, against its products at the bf16 peak."""
+    ops = flash_ops(name, B, S, Hq, Hkv, D)
     qb, kvb, row = B * S * Hq * D * item, B * S * Hkv * D * item, B * Hq * S * 4
     nbytes = {"flash_fwd": 2 * qb + 2 * kvb + row,            # q, k, v -> o, lse
               "flash_bwd_dq": 3 * qb + 2 * kvb + 2 * row,     # q, k, v, dO, lse, delta -> dq
@@ -491,6 +546,8 @@ def flash_kernel_phase(card: str) -> list[dict]:
         t = {"kernel_ms": time_ms(kernel, flush), "plain_ms": time_ms(plain, flush, 5, 1),
              "kernel_ms_repeat": time_ms(kernel, flush)}
         t["bound_ms"], t["bound_by"] = flash_bound(name, *shape, q.element_size())
+        t["achieved_tflops"] = flash_ops(name, *shape) / t["kernel_ms"] / 1e9
+        t["bound_share"] = t["bound_ms"] / t["kernel_ms"]
         t["library_ms"] = lib_fwd_ms if name == "flash_fwd" else lib_bwd_ms
         library = ("SDPA forward, is_causal, enable_gqa" if name == "flash_fwd" else
                    "SDPA backward: dq, dk and dv in one call")

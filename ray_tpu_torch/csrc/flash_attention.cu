@@ -1,7 +1,8 @@
 // Flash attention forward and backward for NVIDIA Hopper (sm_90a).
 //
 // Replaces the three Pallas TPU kernels of ray_tpu/ops/flash_attention.py:
-//   flash_fwd_kernel     <- _fwd_kernel     (:33)  O and the row logsumexp
+//   flash_fwd_bf16_kernel,
+//   flash_fwd_f32_kernel <- _fwd_kernel     (:33)  O and the row logsumexp
 //   flash_bwd_dq_kernel  <- _bwd_dq_kernel  (:102) dQ = sum_k dS K
 //   flash_bwd_dkv_kernel <- _bwd_dkv_kernel (:136) dV = sum_q P^T dO, dK = sum_q dS^T Q
 // with the reference's rules: scores S = Q K^T * scale in float32, NEG_INF is
@@ -18,16 +19,59 @@
 // causal) the forward does 4 * B * Hq * D * S (S + 1) / 2 flops on ~85 MB, the
 // backward 3 and 4 such products, all far above the card's flops per byte. So
 // the design keeps every S x S tile on chip and puts the products on the
-// tensor cores:
-//  - bf16: each product is a block GEMM of 16x16x16 WMMA tiles (mma.sync),
-//    bf16 operands from shared memory, float32 accumulation. P and dS are
-//    rounded to bf16 before their products; the softmax statistics and all
-//    sums stay float32. float32 inputs take a register-tiled CUDA-core GEMM
-//    with the same structure, exact float32 throughout.
-//  - forward: one CTA per (q tile, q head, batch) loops over the k tiles up to
-//    the diagonal (causal), carrying m, l and the accumulator in shared
-//    memory. The TPU kernel carries them in scratch along a sequential grid
-//    axis; here the loop is inside the CTA and needs no cross-CTA reduction.
+// tensor cores.
+//
+// bf16 forward (flash_fwd_bf16_kernel), the FlashAttention-2 layout:
+//  - one CTA per (q tile of 128 rows, q head, batch). Each warp owns whole
+//    m16 slabs of rows and runs the k loop for them alone, so the online
+//    softmax needs no exchange between warps: at D 64, 4 warps of 32 rows
+//    (two slabs), so each K and V fragment read from shared memory feeds
+//    two products; at D 128, 8 warps of 16 rows, since two slabs would need
+//    more than 255 registers. The grid puts the q tile on its slowest axis,
+//    reversed, so the longest causal tiles of every head start first and
+//    the shortest form the tail.
+//  - Q goes to shared memory once by cp.async and then lives in registers as
+//    ldmatrix.x4 A fragments. K and V tiles of 64 keys stream through a
+//    two-stage cp.async.cg ring: tile j + 1 is copied while tile j is
+//    multiplied, and the copy zero-fills rows at or past S (src-size 0). One
+//    __syncthreads per tile both publishes tile j and frees the stage of
+//    tile j - 1 for tile j + 1. Rows are padded by 16 bytes so that the
+//    eight row addresses of each ldmatrix fall on distinct banks.
+//  - S = Q K^T by mma.sync.m16n8k16 (bf16 in, float32 accumulate), with K's
+//    B fragments from ldmatrix; S stays in C fragments (each thread holds
+//    rows lane / 4 and lane / 4 + 8 of a slab). The softmax runs on the
+//    fragments: the row max of the raw scores and the row sum reduce over
+//    the four lanes of a quad (two __shfl_xor_sync each), and P = 2^(s c -
+//    m c) with c = scale log2 e, one FMA and one ex2.approx per score. m, l
+//    and the O accumulator are float32 registers, O rescaled in registers.
+//    The mask is applied only on tiles that cross the diagonal or the ragged
+//    end, and a warp skips a causal tile whose keys all follow its rows.
+//  - O += P V: P's C fragments are rounded to bf16 pairs and two adjacent n8
+//    tiles form one k16 A fragment, so P never leaves registers; V's B
+//    fragments come from ldmatrix.x4.trans of the row-major V tile.
+//  - epilogue: O / max(l, 1e-30) rounded to bf16 and stored from the
+//    fragments as bf16 pairs; lse = m scale + ln l in natural log.
+//  - what still holds it back against the bound: the bound assumes the
+//    wgmma rate, which mma.sync does not reach; each tile's softmax (FMA,
+//    ex2, max, sum, rescale, pack) is issued by the same warps between the
+//    two products, and only one K/V tile is in flight. The next steps are
+//    wgmma from a TMA ring with warp specialisation (producer warp, two
+//    consumer warpgroups overlapping softmax and products) and a persistent
+//    grid.
+//
+// float32 forward (flash_fwd_f32_kernel) and the backward keep the first
+// design, a block GEMM through shared memory:
+//  - bf16 (dQ, dK/dV): 16x16x16 WMMA tiles (mma.sync), bf16 operands from
+//    shared memory, float32 accumulation. P and dS are rounded to bf16
+//    before their products; the softmax statistics and all sums stay
+//    float32. float32 inputs take a register-tiled CUDA-core GEMM with the
+//    same structure, exact float32 throughout (mma.sync has no float32
+//    product, and float32 is a checking type).
+//  - float32 forward: one CTA per (q tile, q head, batch) loops over the k
+//    tiles up to the diagonal (causal), carrying m, l and the accumulator in
+//    shared memory. The TPU kernel carries them in scratch along a
+//    sequential grid axis; here the loop is inside the CTA and needs no
+//    cross-CTA reduction.
 //  - dQ: one CTA per (q tile, q head, batch), looping over k tiles up to the
 //    diagonal.
 //  - dK/dV: one CTA per (k tile, kv head, batch), looping over the g query
@@ -36,13 +80,15 @@
 //    the CTA's accumulators: no atomics, no [B, S, Hq, D] dK buffer.
 //  - no repeat and no padding: heads map by index, rows past S load as zeros
 //    and are masked (keys) or not stored (queries).
-// Known limits: global loads are synchronous (no cp.async/TMA pipeline), the
+// Known limits of dQ and dK/dV: global loads are synchronous, the
 // accumulators round-trip through shared memory between WMMA products, and
-// wgmma is not used. Those are the next steps.
+// wgmma is not used. The bf16 forward's fragment helpers are their next
+// step.
 //
 // C interface (bound with ctypes): each *_launch returns the cudaError_t of
 // its launch (0 on success). `strides` points to host int64 triples
 // (batch, seq, head) of the strided tensors, in argument order.
+// flash_fwd_smem_bytes reports a forward CTA's dynamic shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,6 +105,7 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.442695040888963407f;
 
 struct Strides {
   long long b, s, h;
@@ -100,7 +147,7 @@ struct Tiles {
   static constexpr size_t row = up128((size_t)BQ * sizeof(float));
   static constexpr size_t q_acc = up128((size_t)BQ * LA * sizeof(float));
   static constexpr size_t k_acc = up128((size_t)BK * LA * sizeof(float));
-  // forward: q, k, v, s, p, acc, m, l, corr
+  // float32 forward: q, k, v, s, p, acc, m, l, corr
   static constexpr size_t fwd_smem = q_tile + 2 * k_tile + s_tile + p_tile + q_acc + 3 * row;
   // dQ: q, dO, k, v, s, dP, dS, acc, lse, delta
   static constexpr size_t dq_smem = 2 * q_tile + 2 * k_tile + 2 * s_tile + p_tile + q_acc + 2 * row;
@@ -207,12 +254,286 @@ __device__ __forceinline__ bool key_live(int row, int col, int S, int causal) {
   return col < S && (!causal || row >= col);
 }
 
-// ------------------------------------------------------------------ forward
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
-    float* __restrict__ lse, Strides sq, Strides sk, Strides sv, Strides so, int S, int g,
-    int causal, float scale) {
+// ------------------------------------------------------------------ bf16 forward
+// Register-level tensor-core helpers (PTX): cp.async copies, ldmatrix
+// fragment loads and the m16n8k16 bf16 product with float32 accumulation.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; with `valid` false nothing is read and the 16
+// bytes are zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i,
+// and thread t receives, of each, row t / 4 at columns 2 (t % 4) and + 1
+// (with .trans: rows 2 (t % 4) and + 1 at column t / 4).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c[16x8] += a[16x16] b[16x8]. a: rows (0-7, k 0-7), (8-15, k 0-7),
+// (0-7, k 8-15), (8-15, k 8-15), each thread row t / 4, k 2 (t % 4) and + 1;
+// b: k 2 (t % 4), + 1 (b0) and + 8, + 9 (b1) at n t / 4; c: row t / 4 (c0,
+// c1) and t / 4 + 8 (c2, c3) at n 2 (t % 4) and + 1.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x on the special-function unit (relative error about 2^-22); 2^(-huge)
+// is 0, so masked scores need no separate zeroing.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Tiles of the bf16 forward: 128 query rows, 64 keys, rows padded by 16
+// bytes; shared memory holds Q, then K and V of two stages. Each warp owns
+// kSlabs m16 slabs of rows, so every K and V fragment it loads from shared
+// memory feeds kSlabs products: two at D 64 (4 warps), one at D 128 (8
+// warps), where two would need more than 255 registers.
+template <int D>
+struct FwdTiles {
+  static constexpr int kSlabs = D == 64 ? 2 : 1;
+  static constexpr int BQ = 128;
+  static constexpr int BK = 64;
+  static constexpr int kThreads = 32 * BQ / (16 * kSlabs);
+  static constexpr int kMinBlocks = D == 64 ? 2 : 1;  // D 128: 8 warps of ~200 registers
+  static constexpr int LD = D + 8;
+  static constexpr size_t q_bytes = (size_t)BQ * LD * sizeof(bf16);
+  static constexpr size_t kv_elems = (size_t)BK * LD;
+  static constexpr size_t smem = q_bytes + 4 * kv_elems * sizeof(bf16);
+};
+
+// Rows [row0, row0 + R) of one head into a [R][LD] shared tile by cp.async,
+// 16 bytes a copy from NT threads; rows at or past S are zero-filled by the
+// copy itself.
+template <int R, int D, int LD, int NT>
+__device__ __forceinline__ void cp_async_tile(bf16* dst, const bf16* head, long long row_stride,
+                                              int row0, int S) {
+  constexpr int kChunks = D / 8;
+  static_assert(R * kChunks % NT == 0, "every thread copies the same count");
+#pragma unroll
+  for (int i = 0; i < R * kChunks / NT; ++i) {
+    const int x = threadIdx.x + i * NT;
+    const int r = x / kChunks, c = x % kChunks * 8;
+    const bool in = row0 + r < S;
+    cp_async16(dst + r * LD + c, head + (in ? row0 + r : 0) * row_stride + c, in);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(FwdTiles<D>::kThreads, FwdTiles<D>::kMinBlocks) flash_fwd_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ o, float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
+    Strides so, int S, int g, int causal, float scale_log2) {
+  using L = FwdTiles<D>;
+  constexpr int BQ = L::BQ, BK = L::BK, LD = L::LD, NT = L::kThreads, MS = L::kSlabs;
+  constexpr int KD = D / 16;  // k16 steps of Q K^T
+  constexpr int NS = BK / 8;  // n8 score tiles of one k tile
+  constexpr int NO = D / 8;   // n8 output tiles
+  static_assert(KD % 2 == 0 && NO % 2 == 0 && BK % 16 == 0, "x4 loads take pairs");
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);
+  bf16* kv_s = reinterpret_cast<bf16*>(smem + L::q_bytes);  // stage t: K, V at 2t, 2t + 1
+
+  // blocks start in x-fastest order: every (head, batch) of the last q tile
+  // first, so the longest causal tiles lead and the shortest form the tail
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ, h = blockIdx.x, b = blockIdx.y;
+  const int hq = gridDim.x, kh = h / g;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp_r0 = 16 * MS * warp;  // this warp's rows: q0 + warp_r0 .. + 16 MS - 1
+  const int warp_q0 = q0 + warp_r0;
+  const int row0 = warp_q0 + lane / 4;  // this thread's rows: row0 + 16 i and + 8
+  const int col_t = 2 * (lane % 4);     // its first column in each n8 tile
+  const bf16* k_head = k + b * sk.b + kh * sk.h;
+  const bf16* v_head = v + b * sv.b + kh * sv.h;
+  const int n_k = causal ? (min(q0 + BQ, S) - 1) / BK + 1 : (S + BK - 1) / BK;
+
+  cp_async_tile<BQ, D, LD, NT>(q_s, q + b * sq.b + h * sq.h, sq.s, q0, S);
+  cp_async_tile<BK, D, LD, NT>(kv_s, k_head, sk.s, 0, S);
+  cp_async_tile<BK, D, LD, NT>(kv_s + L::kv_elems, v_head, sv.s, 0, S);
+  cp_async_commit();
+
+  uint32_t qf[MS][KD][4];
+  float acc[MS][NO][4];
+  float m[MS][2], l[MS][2];  // per row: the max raw score (unscaled), the sum
+#pragma unroll
+  for (int i = 0; i < MS; ++i) {
+#pragma unroll
+    for (int n = 0; n < NO; ++n) acc[i][n][0] = acc[i][n][1] = acc[i][n][2] = acc[i][n][3] = 0.f;
+    m[i][0] = m[i][1] = kNegInf;
+    l[i][0] = l[i][1] = 0.f;
+  }
+
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int k0 = kt * BK;
+    // Tile kt is the only copy in flight. After the barrier it is visible to
+    // every warp, and every warp is done with tile kt - 1, whose stage the
+    // copy of tile kt + 1 then reuses.
+    cp_async_wait_all();
+    __syncthreads();
+    if (kt + 1 < n_k) {
+      bf16* next = kv_s + ((kt + 1) & 1) * 2 * L::kv_elems;
+      cp_async_tile<BK, D, LD, NT>(next, k_head, sk.s, k0 + BK, S);
+      cp_async_tile<BK, D, LD, NT>(next + L::kv_elems, v_head, sv.s, k0 + BK, S);
+      cp_async_commit();
+    }
+    if (kt == 0) {
+#pragma unroll
+      for (int i = 0; i < MS; ++i)
+#pragma unroll
+        for (int kd = 0; kd < KD; ++kd)
+          ldsm_x4(qf[i][kd], q_s + (warp_r0 + 16 * i + lane % 16) * LD + kd * 16 + lane / 16 * 8);
+    }
+    if (causal && k0 > warp_q0 + 16 * MS - 1) continue;  // every key follows every row here
+    const bf16* k_st = kv_s + (kt & 1) * 2 * L::kv_elems;
+    const bf16* v_st = k_st + L::kv_elems;
+
+    // S = Q K^T: one x4 load gives the B fragments of two k16 steps
+    float s[MS][NS][4];
+#pragma unroll
+    for (int i = 0; i < MS; ++i)
+#pragma unroll
+      for (int j = 0; j < NS; ++j) s[i][j][0] = s[i][j][1] = s[i][j][2] = s[i][j][3] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; kd += 2) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        uint32_t bk[4];
+        ldsm_x4(bk, k_st + (8 * j + lane % 8) * LD + kd * 16 + lane / 8 * 8);
+#pragma unroll
+        for (int i = 0; i < MS; ++i) {
+          mma_bf16(s[i][j], qf[i][kd], bk[0], bk[1]);
+          mma_bf16(s[i][j], qf[i][kd + 1], bk[2], bk[3]);
+        }
+      }
+    }
+
+    // online softmax on the fragments. The max is taken over raw scores
+    // (scale > 0 keeps the order); P = 2^(s scale log2 e - m scale log2 e).
+    if (k0 + BK > S || (causal && k0 + BK - 1 > warp_q0)) {
+#pragma unroll
+      for (int i = 0; i < MS; ++i)
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (!key_live(row0 + 16 * i + (e & 2) * 4, k0 + 8 * j + col_t + (e & 1), S, causal))
+              s[i][j][e] = kNegInf;
+    }
+#pragma unroll
+    for (int i = 0; i < MS; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[i][r];
+#pragma unroll
+        for (int j = 0; j < NS; ++j) mx = fmaxf(mx, fmaxf(s[i][j][2 * r], s[i][j][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        // a dead row (no live key yet) keeps m = NEG_INF: its P and its
+        // correction are 2^(-huge) = 0, as the reference's alive factor gives
+        const float m_scaled = mx > kNegInf * 0.5f ? mx * scale_log2 : 0.f;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 2 * r; e < 2 * r + 2; ++e) {
+            s[i][j][e] = ex2(fmaf(s[i][j][e], scale_log2, -m_scaled));
+            sum += s[i][j][e];
+          }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        const float corr = ex2(fmaf(m[i][r], scale_log2, -m_scaled));
+        l[i][r] = l[i][r] * corr + sum;
+        m[i][r] = mx;
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          acc[i][n][2 * r] *= corr;
+          acc[i][n][2 * r + 1] *= corr;
+        }
+      }
+
+    // O += P V: score tiles 2t and 2t + 1 are the A fragment of k16 step t;
+    // one transposed x4 load gives the B fragments of two n8 output tiles
+#pragma unroll
+    for (int t = 0; t < BK / 16; ++t) {
+      uint32_t a[MS][4];
+#pragma unroll
+      for (int i = 0; i < MS; ++i) {
+        a[i][0] = pack_bf16(s[i][2 * t][0], s[i][2 * t][1]);
+        a[i][1] = pack_bf16(s[i][2 * t][2], s[i][2 * t][3]);
+        a[i][2] = pack_bf16(s[i][2 * t + 1][0], s[i][2 * t + 1][1]);
+        a[i][3] = pack_bf16(s[i][2 * t + 1][2], s[i][2 * t + 1][3]);
+      }
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, v_st + (16 * t + lane % 16) * LD + n * 8 + lane / 16 * 8);
+#pragma unroll
+        for (int i = 0; i < MS; ++i) {
+          mma_bf16(acc[i][n], a[i], bv[0], bv[1]);
+          mma_bf16(acc[i][n + 1], a[i], bv[2], bv[3]);
+        }
+      }
+    }
+  }
+
+  // epilogue: rows past S are not stored; lse = m scale + ln l
+  bf16* o_head = o + b * so.b + h * so.h;
+  float* lse_row = lse + ((size_t)b * hq + h) * S;
+  const float scale = 1.0f / sqrtf((float)D);
+#pragma unroll
+  for (int i = 0; i < MS; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 16 * i + 8 * r;
+      if (row >= S) continue;
+      const float div = fmaxf(l[i][r], 1e-30f);
+      bf16* dst = o_head + row * so.s + col_t;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
+            __floats2bfloat162_rn(acc[i][n][2 * r] / div, acc[i][n][2 * r + 1] / div);
+      if (lane % 4 == 0) lse_row[row] = l[i][r] > 0.f ? m[i][r] * scale + logf(div) : kNegInf;
+    }
+}
+
+// ------------------------------------------------------------------ float32 forward
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ o, float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
+    Strides so, int S, int g, int causal, float scale) {
+  using T = float;
   using L = Tiles<T, D>;
   constexpr int BQ = L::BQ, BK = L::BK;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -441,19 +762,41 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 
 Strides stride(const long long* s, int i) { return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]}; }
 
+template <int D>
+cudaError_t fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
+                     const long long* st, int B, int S, int Hkv, int g, int causal,
+                     cudaStream_t stream) {
+  using L = FwdTiles<D>;
+  auto kernel = flash_fwd_bf16_kernel<D>;
+  const int q_tiles = (S + L::BQ - 1) / L::BQ;
+  if (q_tiles > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = prepare(kernel, L::smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(Hkv * g, B, q_tiles);
+  kernel<<<grid, L::kThreads, L::smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), static_cast<float*>(lse), stride(st, 0), stride(st, 1),
+      stride(st, 2), stride(st, 3), S, g, causal, kLog2e / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                 const long long* st, int B, int S, int Hkv, int g, int causal, cudaStream_t stream) {
-  using L = Tiles<T, D>;
-  auto kernel = flash_fwd_kernel<T, D>;
-  cudaError_t err = prepare(kernel, L::fwd_smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + L::BQ - 1) / L::BQ, Hkv * g, B);
-  kernel<<<grid, kThreads, L::fwd_smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), stride(st, 0), stride(st, 1), stride(st, 2),
-      stride(st, 3), S, g, causal, 1.0f / sqrtf((float)D));
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, bf16>::value) {
+    return fwd_bf16<D>(q, k, v, o, lse, st, B, S, Hkv, g, causal, stream);
+  } else {
+    using L = Tiles<T, D>;
+    auto kernel = flash_fwd_f32_kernel<D>;
+    cudaError_t err = prepare(kernel, L::fwd_smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((S + L::BQ - 1) / L::BQ, Hkv * g, B);
+    kernel<<<grid, kThreads, L::fwd_smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), static_cast<float*>(lse), stride(st, 0), stride(st, 1),
+        stride(st, 2), stride(st, 3), S, g, causal, 1.0f / sqrtf((float)D));
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int D>
@@ -514,6 +857,15 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
                                 int causal, int dtype, void* stream) {
   if (!valid(B, S, Hkv, g)) return (int)cudaErrorInvalidValue;
   FLASH_DISPATCH(fwd, q, k, v, o, lse, strides, B, S, Hkv, g, causal);
+}
+
+// Dynamic shared memory of one forward CTA, in bytes (for reports).
+extern "C" int flash_fwd_smem_bytes(int D, int dtype) {
+  if (dtype == 1 && D == 64) return (int)FwdTiles<64>::smem;
+  if (dtype == 1 && D == 128) return (int)FwdTiles<128>::smem;
+  if (dtype == 0 && D == 64) return (int)Tiles<float, 64>::fwd_smem;
+  if (dtype == 0 && D == 128) return (int)Tiles<float, 128>::fwd_smem;
+  return -1;
 }
 
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, const void* dout,

@@ -34,7 +34,9 @@ def _jax_flash(causal):
                                                block_k=BLOCK)
 
 
-SHAPES = [(1, 96, 2, 2, 16), (1, 100, 2, 2, 16), (2, 64, 8, 2, 16)]
+# S 127 and 129 sit one under and one over the CUDA forward's 128-row q tile
+SHAPES = [(1, 96, 2, 2, 16), (1, 100, 2, 2, 16), (2, 64, 8, 2, 16), (1, 127, 2, 2, 16),
+          (1, 129, 4, 2, 16)]
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -129,7 +129,11 @@ def _flash_inputs(device, dtype, B, S, Hq, Hkv, D, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("B,S,Hq,Hkv,D", [(2, 100, 8, 2, 64), (1, 1, 4, 4, 128),
-                                          (2, 257, 4, 1, 128), (1, 1000, 8, 2, 64)])
+                                          (2, 257, 4, 1, 128), (1, 1000, 8, 2, 64)] + [
+    # the bf16 forward's 128-row q tile and 64-key k tile: S one under, at and
+    # one over a q tile, and one under a long multiple; g 1 and 4, D 64 and 128
+    (1, S, Hq, Hkv, D) for S in (127, 128, 129, 2047) for D in (64, 128)
+    for Hq, Hkv in ((4, 4), (8, 2))])
 def test_flash_kernels_match_plain(cuda, dtype, causal, B, S, Hq, Hkv, D):
     q, k, v, do = _flash_inputs(cuda, dtype, B, S, Hq, Hkv, D)
     before = (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
@@ -149,6 +153,36 @@ def test_flash_kernels_match_plain(cuda, dtype, causal, B, S, Hq, Hkv, D):
     assert_flash_close(dv, dv_ref)
     assert (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == tuple(
         n + 1 for n in before)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_kernels_read_strided_views(cuda, dtype, causal, D):
+    """q, k and v as slices of one fused [B, S, Hq + 2 Hkv, D] projection,
+    as a fused QKV matmul gives them: the kernels read them in place through
+    their strides, and agree with the plain versions on contiguous copies."""
+    B, S, Hq, Hkv = 2, 129, 8, 2
+    qkv, do = _flash_inputs(cuda, dtype, B, S, Hq + 2 * Hkv, 1, D)[::3]
+    q, k, v = qkv[:, :, :Hq], qkv[:, :, Hq:Hq + Hkv], qkv[:, :, Hq + Hkv:]
+    do = do[:, :, :Hq]
+    for x in (q, k, v, do):
+        assert not x.is_contiguous() and fa._strided(x) is x
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    qc, kc, vc, doc = (x.contiguous() for x in (q, k, v, do))
+    o_ref, lse_ref = fa.flash_fwd_ref(qc, kc, vc, causal)
+    torch.cuda.synchronize()
+    assert_flash_close(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0.0)
+    delta = (doc.float() * o_ref.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
+    torch.cuda.synchronize()
+    assert_flash_close(dq, fa.flash_bwd_dq_ref(qc, kc, vc, doc, lse_ref, delta, causal))
+    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(qc, kc, vc, doc, lse_ref, delta, causal)
+    assert_flash_close(dk, dk_ref)
+    assert_flash_close(dv, dv_ref)
 
 
 @pytest.mark.gpu
