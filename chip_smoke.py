@@ -5,8 +5,8 @@
 1. Device: the card's name, count, and nvidia-smi's name and power limit.
 2. Build: every kernel source under ray_tpu_torch/csrc, one nvcc each, in
    parallel; build seconds, each kernel's registers and spill bytes from
-   ptxas, and the bf16 forward's dynamic shared memory. The bf16 forward at
-   head dim 64 must not spill.
+   ptxas, and the bf16 forward's and dK/dV's dynamic shared memory. Neither
+   bf16 kernel may spill at head dim 64.
 3. Kernels: each kernel against its plain PyTorch version at the main
    path's shapes (bf16 and float32), then timed with CUDA events (L2 flushed
    before every launch) beside the plain version, one library call computing
@@ -20,7 +20,7 @@
    that decode step.
 5. Flash kernels: forward, dQ and dK/dV each against its plain version
    (bf16 and float32; causal and not; GQA 1 and 4 at head dim 64 and 128;
-   ragged S 1, 100, 127, 129, 1000, 2047, 2048), then timed at the
+   ragged S 1, 33, 95, 100, 127, 129, 1000, 2047, 2048), then timed at the
    trainer's shapes beside the plain version, SDPA and the bound, with the
    achieved TFLOP/s and the share of the bound.
 6. Training path: Llama-3.2-1B at full width and depth (bf16, remat "full",
@@ -75,10 +75,12 @@ LOGIT_REL_TOL = 5e-2  # gather path casts probs to bf16 before PV, the kernel ke
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 5
 # flash checks: (B, S, Hq, Hkv, D); GQA 4 at D 64 as the trainer has it, ragged S
 # (1, 100 and 1000 are not multiples of the 64-row tile; 127 and 129 sit one
-# under and one over the bf16 forward's 128-row tile), g 1, two D 128 cases
+# under and one over the bf16 forward's 128-row tile and around two bf16
+# dK/dV k tiles of 64 keys; 33 and 95 sit one over and one under that
+# kernel's 32-query tile at D 128), g 1, four D 128 cases
 FLASH_SHAPES = [(2, 1, 8, 2, 64), (2, 100, 8, 2, 64), (2, 127, 8, 2, 64), (2, 129, 8, 8, 64),
-                (2, 1000, 8, 2, 64), (1, 2048, 32, 8, 64), (1, 1000, 8, 2, 128),
-                (1, 2047, 8, 2, 128)]
+                (2, 1000, 8, 2, 64), (1, 2048, 32, 8, 64), (2, 33, 8, 8, 128),
+                (2, 95, 8, 2, 128), (1, 1000, 8, 2, 128), (1, 2047, 8, 2, 128)]
 # flash kernel vs plain. float32: both sides float32, sums reordered; atol
 # 2e-5 * max(1, max |plain|) elementwise. bf16: the kernel rounds P and dS to
 # bf16 (relative error up to 2^-9 each) before its tensor-core products, the
@@ -106,10 +108,11 @@ TRAIN_LOSS_REL_TOL, TRAIN_GRAD_NORM_REL_TOL = 6e-6, 3e-4
 TRAIN_QKV_GRAD_REL_TOL = {"wq": 3.5e-2, "wk": 3e-2, "wv": 1e-2}
 FLASH_DTYPES = (torch.bfloat16, torch.float32)
 FLASH_OUTPUTS = {"flash_fwd": ("o",), "flash_bwd_dq": ("dq",), "flash_bwd_dkv": ("dk", "dv")}
-FLASH_KERNELS = {  # name: (TPU kernel it replaces, tensor-core products per (q, k) pair)
-    "flash_fwd": ("ray_tpu/ops/flash_attention.py:33", 2),
-    "flash_bwd_dq": ("ray_tpu/ops/flash_attention.py:102", 3),
-    "flash_bwd_dkv": ("ray_tpu/ops/flash_attention.py:136", 4),
+FLASH_KERNELS = {  # name: (TPU kernel it replaces, tensor-core products per (q, k) pair,
+    #                    the CUDA kernel that runs at the trainer's shapes)
+    "flash_fwd": ("ray_tpu/ops/flash_attention.py:33", 2, "flash_fwd_bf16_kernel<64>"),
+    "flash_bwd_dq": ("ray_tpu/ops/flash_attention.py:102", 3, "flash_bwd_dq_kernel<bf16,64>"),
+    "flash_bwd_dkv": ("ray_tpu/ops/flash_attention.py:136", 4, "flash_bwd_dkv_bf16_kernel<64>"),
 }
 
 
@@ -193,14 +196,15 @@ def build_phase(card: str) -> None:
     for info in report.values():
         kernels.update(ptxas_kernels(info["ptxas"]))
     log(card, "ptxas: registers, stack frame and spill bytes per kernel", kernels=kernels)
-    # the bf16 forward: its registers, dynamic shared memory and spills
-    smem = _build.load("flash_attention").flash_fwd_smem_bytes
-    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-    for D in (64, 128):
-        info = kernels[f"flash_fwd_bf16_kernel<{D}>"]
-        log(card, f"flash_fwd_bf16_kernel<{D}> resources", **info,
-            dynamic_smem_bytes=smem(D, fa._DTYPES[torch.bfloat16]))
-    assert kernels["flash_fwd_bf16_kernel<64>"]["spill_stores"] == 0, kernels
+    # the bf16 forward and dK/dV: registers, dynamic shared memory and spills
+    lib = _build.load("flash_attention")
+    for kernel, fn in (("flash_fwd_bf16_kernel", lib.flash_fwd_smem_bytes),
+                       ("flash_bwd_dkv_bf16_kernel", lib.flash_bwd_dkv_smem_bytes)):
+        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+        for D in (64, 128):
+            log(card, f"{kernel}<{D}> resources", **kernels[f"{kernel}<{D}>"],
+                dynamic_smem_bytes=fn(D, fa._DTYPES[torch.bfloat16]))
+        assert kernels[f"{kernel}<64>"]["spill_stores"] == 0, kernels
 
 
 def paged_inputs(dtype, cfg: llama.LlamaConfig, lengths, seed: int):
@@ -555,8 +559,8 @@ def flash_kernel_phase(card: str) -> list[dict]:
             shapes=dict(zip("B S Hq Hkv D".split(), shape)), library=library,
             library_fwd_max_abs_err=lib_err, **t)
         entries.append({
-            "name": name, "route": "cuda", "source": "ray_tpu_torch/csrc/flash_attention.cu",
-            "replaces": FLASH_KERNELS[name][0],
+            "name": name, "kernel": FLASH_KERNELS[name][2], "route": "cuda",
+            "source": "ray_tpu_torch/csrc/flash_attention.cu", "replaces": FLASH_KERNELS[name][0],
             "max_abs_err": errs[name][torch.bfloat16]["max_abs_err"],
             "max_abs_err_bf16": errs[name][torch.bfloat16]["max_abs_err"],
             "max_row_rel_err_bf16": errs[name][torch.bfloat16]["max_row_rel_err"],

@@ -4,7 +4,8 @@
 //   flash_fwd_bf16_kernel,
 //   flash_fwd_f32_kernel <- _fwd_kernel     (:33)  O and the row logsumexp
 //   flash_bwd_dq_kernel  <- _bwd_dq_kernel  (:102) dQ = sum_k dS K
-//   flash_bwd_dkv_kernel <- _bwd_dkv_kernel (:136) dV = sum_q P^T dO, dK = sum_q dS^T Q
+//   flash_bwd_dkv_bf16_kernel,
+//   flash_bwd_dkv_f32_kernel <- _bwd_dkv_kernel (:136) dV = sum_q P^T dO, dK = sum_q dS^T Q
 // with the reference's rules: scores S = Q K^T * scale in float32, NEG_INF is
 // the finite -1e30, a row is alive while its max is above NEG_INF / 2, keys at
 // or past S and (causal) keys after the query are masked, a dead row gives
@@ -59,14 +60,62 @@
 //    consumer warpgroups overlapping softmax and products) and a persistent
 //    grid.
 //
-// float32 forward (flash_fwd_f32_kernel) and the backward keep the first
-// design, a block GEMM through shared memory:
-//  - bf16 (dQ, dK/dV): 16x16x16 WMMA tiles (mma.sync), bf16 operands from
-//    shared memory, float32 accumulation. P and dS are rounded to bf16
-//    before their products; the softmax statistics and all sums stay
-//    float32. float32 inputs take a register-tiled CUDA-core GEMM with the
-//    same structure, exact float32 throughout (mma.sync has no float32
-//    product, and float32 is a checking type).
+// bf16 dK/dV (flash_bwd_dkv_bf16_kernel), the FlashAttention-2 backward
+// with the keys as the M dimension, so nothing of S leaves registers:
+//  - one CTA per (k tile of 64 keys, kv head, batch), 4 warps, each owning
+//    one m16 slab of keys. The grid puts the k tile on its slowest axis,
+//    ascending, so the CTAs with the most causal q tiles start first. K and
+//    V of the tile are copied once by cp.async; at D 64 each warp then holds
+//    its slab's K and V as ldmatrix.x4 A fragments (m = keys, k = D); at D
+//    128 those would not fit beside the accumulators and are read from
+//    shared memory per use.
+//  - the CTA loops over the g query heads of its group and, for each, over
+//    the q tiles from the diagonal on (64 queries at D 64, 32 at D 128), so
+//    the GQA sum over the group (the adjoint of the JAX wrapper's KV repeat)
+//    happens in the accumulators: no atomics, no [B, S, Hq, D] buffer. Q,
+//    dO, lse and delta of a q tile stream through a two-stage cp.async ring
+//    (zero-filled past S), with one __syncthreads per tile as in the
+//    forward.
+//  - a q tile is taken 16 queries at a time. lse comes in, so P^T needs no
+//    reduction over the tile, and only one chunk's S^T and dP^T are live:
+//    16 registers where the whole tile's would take 64. That keeps the D 64
+//    kernel at 3 CTAs (12 warps) a SM, which hides more latency than two
+//    CTAs of the whole-tile layout did.
+//  - S^T = K Q^T and dP^T = V dO^T by mma.sync.m16n8k16, the B fragments by
+//    ldmatrix.x4 of the row-major Q and dO tiles. In the C fragments a
+//    thread holds keys lane / 4 and + 8 and queries 2 (lane % 4) and + 1 of
+//    each n8 tile, so it reads lse and delta of those queries only, as
+//    float2 from the ring stage.
+//  - P^T = 2^(s c - lse log2 e), c = scale log2 e, one FMA and one ex2 per
+//    score; a dead query (lse NEG_INF) takes NEG_INF in place of -lse
+//    log2 e, so its P is 2^(-huge) = 0 as the reference's alive factor
+//    gives (the plain exponent would overflow to +inf). The mask is applied
+//    only on chunks that cross the diagonal or where the warp holds keys
+//    past S, and a warp skips a chunk whose queries all precede its keys.
+//    Queries past S are zero-filled Q and dO rows with lse = delta = 0, so
+//    they add exact zeros.
+//  - dS^T = P^T (dP^T - delta) scale in registers. P^T and dS^T are rounded
+//    to bf16 pairs, the chunk's two n8 tiles forming one k16 A fragment, and
+//    dV += P^T dO, dK += dS^T Q take their B fragments from ldmatrix.x4.trans
+//    of the same Q and dO stage. dK and dV stay float32 C fragments for the
+//    whole CTA and are stored as bf16 pairs; keys past S are not stored.
+//  - what still holds it back against the bound: mma.sync rather than
+//    wgmma; the exponentials and dS of each chunk are issued by the same
+//    warps between the products; and every warp reads the whole Q and dO
+//    tile from shared memory twice per q tile (ldmatrix and .trans), 32 KB
+//    for its four 16 x 64 x 64 products at D 64 (16 flops a byte), which
+//    shared memory's 128 bytes a cycle cannot feed at the tensor-core rate.
+//    Two key slabs a warp would halve those reads only with both slabs' K
+//    and V resident, 64 more registers than the accumulators leave.
+//
+// float32 (flash_fwd_f32_kernel, flash_bwd_dkv_f32_kernel) and dQ keep the
+// first design, a block GEMM through shared memory:
+//  - bf16 dQ: 16x16x16 WMMA tiles (mma.sync), bf16 operands from shared
+//    memory, float32 accumulation. dS is rounded to bf16 before its
+//    product; the softmax statistics and all sums stay float32. float32
+//    inputs take a register-tiled CUDA-core GEMM with the same structure,
+//    exact float32 throughout (mma.sync has no float32 product, and float32
+//    is a checking type).
 //  - float32 forward: one CTA per (q tile, q head, batch) loops over the k
 //    tiles up to the diagonal (causal), carrying m, l and the accumulator in
 //    shared memory. The TPU kernel carries them in scratch along a
@@ -74,21 +123,19 @@
 //    cross-CTA reduction.
 //  - dQ: one CTA per (q tile, q head, batch), looping over k tiles up to the
 //    diagonal.
-//  - dK/dV: one CTA per (k tile, kv head, batch), looping over the g query
-//    heads of its group and the q tiles from the diagonal on, so the GQA sum
-//    over the group (the adjoint of the JAX wrapper's KV repeat) happens in
-//    the CTA's accumulators: no atomics, no [B, S, Hq, D] dK buffer.
+//  - float32 dK/dV: one CTA per (k tile, kv head, batch), looping over the
+//    group's q heads and q tiles as the bf16 kernel does.
 //  - no repeat and no padding: heads map by index, rows past S load as zeros
 //    and are masked (keys) or not stored (queries).
-// Known limits of dQ and dK/dV: global loads are synchronous, the
-// accumulators round-trip through shared memory between WMMA products, and
-// wgmma is not used. The bf16 forward's fragment helpers are their next
-// step.
+// Known limits of dQ: global loads are synchronous, the accumulator
+// round-trips through shared memory between WMMA products, and wgmma is not
+// used. The bf16 kernels' fragment helpers are its next step.
 //
 // C interface (bound with ctypes): each *_launch returns the cudaError_t of
 // its launch (0 on success). `strides` points to host int64 triples
 // (batch, seq, head) of the strided tensors, in argument order.
-// flash_fwd_smem_bytes reports a forward CTA's dynamic shared memory.
+// flash_fwd_smem_bytes and flash_bwd_dkv_smem_bytes report a forward or
+// dK/dV CTA's dynamic shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -693,13 +740,236 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   store_tile<T, BQ, D>(dq + b * sdq.b + h * sdq.h, sdq.s, q0, S, acc, L::LA, nullptr);
 }
 
-// ------------------------------------------------------------------ dK / dV
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dk, T* __restrict__ dv, Strides sq, Strides sk, Strides sv, Strides sdo,
-    Strides sdk, Strides sdv, int S, int g, int causal, float scale) {
+// ------------------------------------------------------------------ bf16 dK / dV
+// 4 bytes global -> shared (cp.async.ca; .cg copies only 16); with `valid`
+// false nothing is read and the 4 bytes are zero-filled.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+// Tiles of the bf16 dK/dV kernel: 64 keys a CTA, 4 warps of one m16 key slab
+// each; q tiles of 64 queries at D 64 and 32 at D 128, where the dK and dV
+// accumulators alone take 128 registers. kMinBlocks caps the registers: at
+// D 64 three CTAs a SM (at most 170 registers a thread) with no spill.
+// Rows are padded by 16 bytes. Shared memory holds K and V, then two ring
+// stages of Q, dO, lse and delta.
+template <int D>
+struct DkvTiles {
+  static constexpr int BK = 64;
+  static constexpr int BQ = D == 64 ? 64 : 32;
+  static constexpr int kThreads = 32 * BK / 16;
+  static constexpr bool kResidentKV = D == 64;  // K/V A fragments kept in registers
+  static constexpr int kMinBlocks = D == 64 ? 3 : 2;
+  static constexpr int LD = D + 8;
+  static constexpr size_t kv_bytes = 2 * (size_t)BK * LD * sizeof(bf16);
+  static constexpr size_t q_elems = (size_t)BQ * LD;  // one Q or dO tile
+  static constexpr size_t stage_bytes = 2 * q_elems * sizeof(bf16) + 2 * BQ * sizeof(float);
+  static constexpr size_t smem = kv_bytes + 2 * stage_bytes;
+};
+
+template <int D>
+__global__ void __launch_bounds__(DkvTiles<D>::kThreads, DkvTiles<D>::kMinBlocks) flash_bwd_dkv_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sq,
+    Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv, int S, int g, int causal,
+    float scale) {
+  using L = DkvTiles<D>;
+  constexpr int BQ = L::BQ, BK = L::BK, LD = L::LD, NT = L::kThreads;
+  constexpr int KD = D / 16;   // k16 steps of K Q^T and V dO^T
+  constexpr int NO = D / 8;    // n8 tiles of dK and dV
+  constexpr int KR = L::kResidentKV ? KD : 1;
+  static_assert(KD % 2 == 0 && NO % 2 == 0 && BQ % 16 == 0, "x4 loads take pairs");
+  static_assert(L::kv_bytes % 16 == 0 && L::stage_bytes % 16 == 0, "16-byte aligned stages");
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem);
+  bf16* v_s = k_s + BK * LD;
+  unsigned char* ring = smem + L::kv_bytes;  // stage t: Q, dO, lse, delta
+
+  // blocks start in x-fastest order: every (kv head, batch) of k tile 0
+  // first, so the CTAs with the most causal q tiles lead
+  const int kh = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * BK;
+  const int hq = gridDim.x * g;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp_k0 = k0 + 16 * warp;   // this warp's keys: warp_k0 .. + 15
+  const int key0 = warp_k0 + lane / 4;  // this thread's keys: key0 and key0 + 8
+  const int col_t = 2 * (lane % 4);     // its first query in each n8 tile
+  const float scale_log2 = scale * kLog2e;
+  // causal: q tiles that end before this k tile's first key see none of it
+  const int first_q = causal ? k0 / BQ : 0;
+  const int n_qh = (S + BQ - 1) / BQ - first_q;  // q tiles per query head
+  const int n_it = g * n_qh;
+
+  // Q, dO, lse and delta of iteration `it` (query head it / n_qh) into
+  // stage it & 1; rows at or past S are zero-filled
+  auto issue = [&](int it) {
+    const int h = kh * g + it / n_qh, q0 = (first_q + it % n_qh) * BQ;
+    bf16* q_st = reinterpret_cast<bf16*>(ring + (it & 1) * L::stage_bytes);
+    cp_async_tile<BQ, D, LD, NT>(q_st, q + b * sq.b + h * sq.h, sq.s, q0, S);
+    cp_async_tile<BQ, D, LD, NT>(q_st + L::q_elems, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S);
+    float* stats = reinterpret_cast<float*>(q_st + 2 * L::q_elems);
+    const size_t row = ((size_t)b * hq + h) * S;
+    for (int x = threadIdx.x; x < 2 * BQ; x += NT) {
+      const int r = x % BQ;
+      const bool in = q0 + r < S;
+      cp_async4(stats + x, (x < BQ ? lse : delta) + row + (in ? q0 + r : 0), in);
+    }
+  };
+
+  cp_async_tile<BK, D, LD, NT>(k_s, k + b * sk.b + kh * sk.h, sk.s, k0, S);
+  cp_async_tile<BK, D, LD, NT>(v_s, v + b * sv.b + kh * sv.h, sv.s, k0, S);
+  issue(0);
+  cp_async_commit();
+
+  uint32_t kf[KR][4], vf[KR][4];
+  float dk_acc[NO][4], dv_acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  // this warp's slab of K or V as the A fragment of k16 step kd
+  const int a_off = (16 * warp + lane % 16) * LD + lane / 16 * 8;
+
+  for (int it = 0; it < n_it; ++it) {
+    // Tile it is the only copy in flight. After the barrier it is visible to
+    // every warp, and every warp is done with tile it - 1, whose stage the
+    // copy of tile it + 1 then reuses.
+    cp_async_wait_all();
+    __syncthreads();
+    if (it + 1 < n_it) {
+      issue(it + 1);
+      cp_async_commit();
+    }
+    if (L::kResidentKV && it == 0) {
+#pragma unroll
+      for (int kd = 0; kd < KR; ++kd) {
+        ldsm_x4(kf[kd], k_s + a_off + kd * 16);
+        ldsm_x4(vf[kd], v_s + a_off + kd * 16);
+      }
+    }
+    const int q0 = (first_q + it % n_qh) * BQ;
+    const bf16* q_st = reinterpret_cast<const bf16*>(ring + (it & 1) * L::stage_bytes);
+    const bf16* do_st = q_st + L::q_elems;
+    const float* lse_st = reinterpret_cast<const float*>(q_st + 2 * L::q_elems);
+    const float* delta_st = lse_st + BQ;
+
+    // 16 queries at a time, n8 tiles 2t and 2t + 1: lse is given, so P^T
+    // needs no reduction over the tile, and only this chunk's S^T and dP^T
+    // are live. A chunk whose queries all precede this warp's keys is
+    // skipped; the mask is applied only where the chunk crosses the diagonal
+    // or the warp holds keys past S.
+#pragma unroll
+    for (int t = 0; t < BQ / 16; ++t) {
+      const int c0 = q0 + 16 * t;
+      if (causal && c0 + 15 < warp_k0) continue;
+      const bool masked = (causal && c0 < warp_k0 + 15) || warp_k0 + 16 > S;
+      // S^T = K Q^T and dP^T = V dO^T: one x4 load of Q (dO) gives the B
+      // fragments of two k16 steps of one n8 query tile
+      float st[2][4], dpt[2][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[u][e] = dpt[u][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < KD; kd += 2) {
+        uint32_t ka[2][4], va[2][4];
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          if constexpr (L::kResidentKV) {
+#pragma unroll
+            for (int y = 0; y < 4; ++y) {
+              ka[x][y] = kf[kd + x][y];
+              va[x][y] = vf[kd + x][y];
+            }
+          } else {
+            ldsm_x4(ka[x], k_s + a_off + (kd + x) * 16);
+            ldsm_x4(va[x], v_s + a_off + (kd + x) * 16);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int b_off = (16 * t + 8 * u + lane % 8) * LD + kd * 16 + lane / 8 * 8;
+          uint32_t bq[4], bo[4];
+          ldsm_x4(bq, q_st + b_off);
+          mma_bf16(st[u], ka[0], bq[0], bq[1]);
+          mma_bf16(st[u], ka[1], bq[2], bq[3]);
+          ldsm_x4(bo, do_st + b_off);
+          mma_bf16(dpt[u], va[0], bo[0], bo[1]);
+          mma_bf16(dpt[u], va[1], bo[2], bo[3]);
+        }
+      }
+
+      // P^T = 2^(s c - lse log2 e) and dS^T = P^T (dP^T - delta) scale
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int qc = 16 * t + 8 * u + col_t;  // this thread's first query in the tile
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_st + qc);
+        const float2 d2 = *reinterpret_cast<const float2*>(delta_st + qc);
+        // a dead query gives 2^(s c - 1e30) = 0
+        const float nl[2] = {l2.x > kNegInf * 0.5f ? -l2.x * kLog2e : kNegInf,
+                             l2.y > kNegInf * 0.5f ? -l2.y * kLog2e : kNegInf};
+        const float dl[2] = {d2.x, d2.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = ex2(fmaf(st[u][e], scale_log2, nl[e & 1]));
+          if (masked && !key_live(q0 + qc + (e & 1), key0 + (e & 2) * 4, S, causal)) p = 0.f;
+          st[u][e] = p;
+          dpt[u][e] = p * (dpt[u][e] - dl[e & 1]) * scale;
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q: the chunk's two n8 tiles are one k16
+      // A fragment; one transposed x4 load of dO (Q) gives the B fragments
+      // of two n8 output tiles
+      uint32_t ap[4], ads[4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        ap[2 * u] = pack_bf16(st[u][0], st[u][1]);
+        ap[2 * u + 1] = pack_bf16(st[u][2], st[u][3]);
+        ads[2 * u] = pack_bf16(dpt[u][0], dpt[u][1]);
+        ads[2 * u + 1] = pack_bf16(dpt[u][2], dpt[u][3]);
+      }
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        const int b_off = (16 * t + lane % 16) * LD + n * 8 + lane / 16 * 8;
+        uint32_t bo[4], bq[4];
+        ldsm_x4_trans(bo, do_st + b_off);
+        mma_bf16(dv_acc[n], ap, bo[0], bo[1]);
+        mma_bf16(dv_acc[n + 1], ap, bo[2], bo[3]);
+        ldsm_x4_trans(bq, q_st + b_off);
+        mma_bf16(dk_acc[n], ads, bq[0], bq[1]);
+        mma_bf16(dk_acc[n + 1], ads, bq[2], bq[3]);
+      }
+    }
+  }
+
+  // epilogue: keys past S are not stored
+  bf16* dk_head = dk + b * sdk.b + kh * sdk.h;
+  bf16* dv_head = dv + b * sdv.b + kh * sdv.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= S) continue;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dk_head + key * sdk.s + 8 * n + col_t) =
+          __floats2bfloat162_rn(dk_acc[n][2 * r], dk_acc[n][2 * r + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv_head + key * sdv.s + 8 * n + col_t) =
+          __floats2bfloat162_rn(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ float32 dK / dV
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, Strides sq,
+    Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv, int S, int g, int causal,
+    float scale) {
+  using T = float;
   using L = Tiles<T, D>;
   constexpr int BQ = L::BQ, BK = L::BK;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -816,22 +1086,47 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
+                         const void* lse, const void* delta, void* dk, void* dv,
+                         const long long* st, int B, int S, int Hkv, int g, int causal,
+                         cudaStream_t stream) {
+  using L = DkvTiles<D>;
+  auto kernel = flash_bwd_dkv_bf16_kernel<D>;
+  const int k_tiles = (S + L::BK - 1) / L::BK;
+  if (k_tiles > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = prepare(kernel, L::smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(Hkv, B, k_tiles);
+  kernel<<<grid, L::kThreads, L::smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      stride(st, 0), stride(st, 1), stride(st, 2), stride(st, 3), stride(st, 4), stride(st, 5),
+      S, g, causal, 1.0f / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dk, void* dv, const long long* st,
                     int B, int S, int Hkv, int g, int causal, cudaStream_t stream) {
-  using L = Tiles<T, D>;
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
-  cudaError_t err = prepare(kernel, L::dkv_smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + L::BK - 1) / L::BK, Hkv, B);
-  kernel<<<grid, kThreads, L::dkv_smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), stride(st, 0),
-      stride(st, 1), stride(st, 2), stride(st, 3), stride(st, 4), stride(st, 5), S, g, causal,
-      1.0f / sqrtf((float)D));
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, bf16>::value) {
+    return bwd_dkv_bf16<D>(q, k, v, dout, lse, delta, dk, dv, st, B, S, Hkv, g, causal, stream);
+  } else {
+    using L = Tiles<T, D>;
+    auto kernel = flash_bwd_dkv_f32_kernel<D>;
+    cudaError_t err = prepare(kernel, L::dkv_smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((S + L::BK - 1) / L::BK, Hkv, B);
+    kernel<<<grid, kThreads, L::dkv_smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
+        stride(st, 0), stride(st, 1), stride(st, 2), stride(st, 3), stride(st, 4),
+        stride(st, 5), S, g, causal, 1.0f / sqrtf((float)D));
+    return cudaGetLastError();
+  }
 }
 
 bool valid(int B, int S, int Hkv, int g) {
@@ -865,6 +1160,15 @@ extern "C" int flash_fwd_smem_bytes(int D, int dtype) {
   if (dtype == 1 && D == 128) return (int)FwdTiles<128>::smem;
   if (dtype == 0 && D == 64) return (int)Tiles<float, 64>::fwd_smem;
   if (dtype == 0 && D == 128) return (int)Tiles<float, 128>::fwd_smem;
+  return -1;
+}
+
+// Dynamic shared memory of one dK/dV CTA, in bytes (for reports).
+extern "C" int flash_bwd_dkv_smem_bytes(int D, int dtype) {
+  if (dtype == 1 && D == 64) return (int)DkvTiles<64>::smem;
+  if (dtype == 1 && D == 128) return (int)DkvTiles<128>::smem;
+  if (dtype == 0 && D == 64) return (int)Tiles<float, 64>::dkv_smem;
+  if (dtype == 0 && D == 128) return (int)Tiles<float, 128>::dkv_smem;
   return -1;
 }
 

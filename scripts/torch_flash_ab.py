@@ -12,6 +12,10 @@ C interface is the same). Prints JSON lines:
 - the bf16 forward at the trainer's shapes (B 4, S 2048, Hq 32, Hkv 8,
   D 64; causal and not) for each source in turns (A, B, ..., B, A), CUDA
   events with the L2 flushed before each launch, beside SDPA;
+- the bf16 backward kernels, dQ and dK/dV, causal, in the same turns at the
+  trainer's shapes and at D 128 (B 1, S 2048, Hq 8, Hkv 2), fed one lse and
+  delta from this checkout's forward, beside SDPA's backward (dq, dk and dv
+  in one call);
 - with ``--loss``: Llama-3.2-1B (bf16, remat "full", random weights from
   seed 0) on chip_smoke's batch, at its initial parameters and after 5
   train steps taken through each source's kernels: the loss through each
@@ -38,6 +42,7 @@ from ray_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from ray_tpu_torch.train import spmd  # noqa: E402
 
 TRAINER_SHAPE = (4, 2048, 32, 8, 64)  # B, S, Hq, Hkv, D
+D128_SHAPE = (1, 2048, 8, 2, 128)
 
 
 def build(sources: list[str]) -> dict[str, ctypes.CDLL]:
@@ -71,6 +76,33 @@ def time_forward(card: str, libs: dict) -> None:
     cs.log(card, "flash_fwd A/B (bf16, trainer shapes; ms per call, in turns)",
            shape=dict(zip("B S Hq Hkv D".split(), TRAINER_SHAPE)), kernel_ms=times,
            sdpa_causal_ms=sdpa)
+
+
+def time_backward(card: str, libs: dict) -> None:
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=cs.DEVICE)
+    for shape in (TRAINER_SHAPE, D128_SHAPE):
+        q, k, v, do = cs.flash_inputs(torch.bfloat16, *shape, seed=cs.SEED)
+        use(libs["this checkout"])
+        o, lse = fa.flash_fwd(q, k, v, True)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        times: dict[str, list[float]] = {}
+        for name in list(libs) + list(libs)[::-1]:
+            use(libs[name])
+            times.setdefault(f"{name}, dq", []).append(
+                cs.time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True), flush))
+            times.setdefault(f"{name}, dkv", []).append(
+                cs.time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True), flush))
+        use(libs["this checkout"])
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                               enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
+        sdpa = cs.time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                      retain_graph=True), flush)
+        cs.log(card, "flash backward A/B (bf16, causal; ms per call, in turns)",
+               shape=dict(zip("B S Hq Hkv D".split(), shape)), kernel_ms=times,
+               sdpa_backward_ms=sdpa)
+        del q, k, v, do, o, lse, delta, qt, kt, vt, out, dot
 
 
 def loss_gaps(card: str, libs: dict) -> None:
@@ -125,6 +157,7 @@ def main() -> int:
     _, card = cs.device_phase()
     libs = build(args.sources)
     time_forward(card, libs)
+    time_backward(card, libs)
     if args.loss:
         loss_gaps(card, libs)
     return 0

@@ -34,9 +34,12 @@ def _jax_flash(causal):
                                                block_k=BLOCK)
 
 
-# S 127 and 129 sit one under and one over the CUDA forward's 128-row q tile
+# S 127 and 129 sit one under and one over the CUDA forward's 128-row q tile;
+# 63 and 65 around the bf16 dK/dV kernel's 64-key tile, 33 and 95 around its
+# 32-query tile at D 128
 SHAPES = [(1, 96, 2, 2, 16), (1, 100, 2, 2, 16), (2, 64, 8, 2, 16), (1, 127, 2, 2, 16),
-          (1, 129, 4, 2, 16)]
+          (1, 129, 4, 2, 16), (1, 33, 2, 2, 16), (1, 63, 4, 1, 16), (1, 65, 2, 2, 16),
+          (1, 95, 2, 1, 16)]
 
 
 @pytest.mark.parametrize("causal", [True, False])

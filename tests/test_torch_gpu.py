@@ -185,6 +185,66 @@ def test_flash_kernels_read_strided_views(cuda, dtype, causal, D):
     assert_flash_close(dv, dv_ref)
 
 
+def _dkv_inputs(device, dtype, B, S, Hq, Hkv, D, causal):
+    """q, k, v, dO and the plain forward's lse, with delta = rowsum(dO * O)."""
+    q, k, v, do = _flash_inputs(device, dtype, B, S, Hq, Hkv, D)
+    o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, causal)
+    delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse_ref, delta
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Hq,Hkv", [(2, 2), (8, 2), (8, 1)])
+@pytest.mark.parametrize("S,D", [(63, 64), (65, 64), (191, 64), (31, 128), (33, 128),
+                                 (95, 128)])
+def test_flash_dkv_matches_plain_at_tile_edges(cuda, dtype, causal, Hq, Hkv, S, D):
+    """dK/dV with g 1, 4 and 8 against its plain version, at S one under and
+    one over the bf16 kernel's 64-key tile (D 64) and its 32-query tile
+    (D 128)."""
+    q, k, v, do, lse, delta = _dkv_inputs(cuda, dtype, 2, S, Hq, Hkv, D, causal)
+    before = fa.bwd_dkv_launches
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert fa.bwd_dkv_launches == before + 1
+    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal)
+    assert_flash_close(dk, dk_ref)
+    assert_flash_close(dv, dv_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_dkv_dead_query_rows(cuda, dtype, causal, D):
+    """A query whose lse is NEG_INF (no live key) has P = 0 and adds nothing
+    to dK or dV, as in the reference's ``_recompute_p``. The kernel agrees
+    with the plain version; it gives exactly what it gives when those rows
+    stay alive with dO and delta zeroed, which also add exact zeros; and with
+    every query dead, dK and dV are exactly zero."""
+    B, S, Hq, Hkv = 2, 150, 8, 2
+    q, k, v, do, lse, delta = _dkv_inputs(cuda, dtype, B, S, Hq, Hkv, D, causal)
+    dead = torch.zeros(B, Hq, S, dtype=torch.bool, device=cuda)
+    dead[:, :, ::7] = True
+    dead[0, 3] = True  # a whole query head
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse.masked_fill(dead, fa.NEG_INF), delta, causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dk).all() and torch.isfinite(dv).all()
+    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(q, k, v, do, lse.masked_fill(dead, fa.NEG_INF),
+                                          delta, causal)
+    assert_flash_close(dk, dk_ref)
+    assert_flash_close(dv, dv_ref)
+    rows = dead.transpose(1, 2)[..., None]  # [B, S, Hq, 1]
+    dk0, dv0 = fa.flash_bwd_dkv(q, k, v, do.masked_fill(rows, 0), lse,
+                                delta.masked_fill(dead, 0.0), causal)
+    torch.cuda.synchronize()
+    assert torch.equal(dk, dk0) and torch.equal(dv, dv0)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, torch.full_like(lse, fa.NEG_INF), delta, causal)
+    torch.cuda.synchronize()
+    assert not dk.any() and not dv.any()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_backward_through_function(cuda, dtype):
