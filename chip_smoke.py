@@ -5,8 +5,8 @@
 1. Device: the card's name, count, and nvidia-smi's name and power limit.
 2. Build: every kernel source under ray_tpu_torch/csrc, one nvcc each, in
    parallel; build seconds, each kernel's registers and spill bytes from
-   ptxas, and the bf16 forward's and dK/dV's dynamic shared memory. Neither
-   bf16 kernel may spill at head dim 64.
+   ptxas, and the bf16 forward's, dQ's and dK/dV's dynamic shared memory.
+   None of the three bf16 kernels may spill at head dim 64.
 3. Kernels: each kernel against its plain PyTorch version at the main
    path's shapes (bf16 and float32), then timed with CUDA events (L2 flushed
    before every launch) beside the plain version, one library call computing
@@ -17,19 +17,24 @@
    and every decode step of every layer must have gone through the kernel.
    Then one decode step through forward_paged on the gather path and on the
    kernel path, from copies of the same pool, must agree, and a profile of
-   that decode step.
+   that decode step. Then LlamaConfig.tiny() (head dim 16, float32) served
+   at block size 4 by an engine on the card and one on the CPU from the same
+   weights: every decode step through the kernel, the same greedy tokens.
 5. Flash kernels: forward, dQ and dK/dV each against its plain version
-   (bf16 and float32; causal and not; GQA 1 and 4 at head dim 64 and 128;
-   ragged S 1, 33, 95, 100, 127, 129, 1000, 2047, 2048), then timed at the
-   trainer's shapes beside the plain version, SDPA and the bound, with the
-   achieved TFLOP/s and the share of the bound.
+   (bf16 and float32; causal and not; GQA 1 and 4 at head dim 64 and 128,
+   and at 16 and 96, which the wrappers zero-pad to 64 and 128; ragged S 1,
+   33, 95, 100, 127, 129, 1000, 2047, 2048), then timed at the trainer's
+   shapes beside the plain version, SDPA and the bound, with the achieved
+   TFLOP/s and the share of the bound.
 6. Training path: Llama-3.2-1B at full width and depth (bf16, remat "full",
    random weights from a seed) takes 5 AdamW steps on one [4, 2048] batch;
    the three flash counters are zeroed just before and read just after, and
    each step must have launched the forward 2 L times (remat runs it again)
    and each backward kernel L times. Then loss and gradient norm through the
-   flash kernels against dense attention from the same parameters, and a
-   profile of one train step.
+   flash kernels against dense attention from the same parameters; the loss
+   and the wq/wk/wv gradients through the kernels against plain float32
+   attention at the initial parameters and after the 5 steps; and a profile
+   of one train step.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {...}}. Exits non-zero, before any result, without a
@@ -77,10 +82,12 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 5
 # (1, 100 and 1000 are not multiples of the 64-row tile; 127 and 129 sit one
 # under and one over the bf16 forward's 128-row tile and around two bf16
 # dK/dV k tiles of 64 keys; 33 and 95 sit one over and one under that
-# kernel's 32-query tile at D 128), g 1, four D 128 cases
+# kernel's 32-query tile at D 128), g 1, four D 128 cases, and head dims 16
+# and 96, which the wrappers zero-pad to the kernels' 64 and 128
 FLASH_SHAPES = [(2, 1, 8, 2, 64), (2, 100, 8, 2, 64), (2, 127, 8, 2, 64), (2, 129, 8, 8, 64),
                 (2, 1000, 8, 2, 64), (1, 2048, 32, 8, 64), (2, 33, 8, 8, 128),
-                (2, 95, 8, 2, 128), (1, 1000, 8, 2, 128), (1, 2047, 8, 2, 128)]
+                (2, 95, 8, 2, 128), (1, 1000, 8, 2, 128), (1, 2047, 8, 2, 128),
+                (2, 129, 4, 2, 16), (2, 1000, 8, 2, 96)]
 # flash kernel vs plain. float32: both sides float32, sums reordered; atol
 # 2e-5 * max(1, max |plain|) elementwise. bf16: the kernel rounds P and dS to
 # bf16 (relative error up to 2^-9 each) before its tensor-core products, the
@@ -106,12 +113,29 @@ LSE_ATOL = 1e-4
 # only through P), limits about two and a half times that.
 TRAIN_LOSS_REL_TOL, TRAIN_GRAD_NORM_REL_TOL = 6e-6, 3e-4
 TRAIN_QKV_GRAD_REL_TOL = {"wq": 3.5e-2, "wk": 3e-2, "wv": 1e-2}
+# training against plain float32 attention (q, k and v upcast, probabilities
+# float32, the output rounded to bf16 once), at the initial parameters and
+# after the 5 steps: the relative loss gap and |g_kernels - g_plain| /
+# |g_plain| of wq, wk and wv. The two share the rest of the model and differ
+# in the attention arithmetic only (the kernels round P and dS to bf16
+# before their products and form delta from the bf16 output). The gaps
+# depend on the point (dense attention reads about the same against plain
+# float32 at each), so each point has its own limits, about 2.5 times what
+# the H100 read there: at the initial parameters 3.11e-5 (loss), 2.84e-2,
+# 2.82e-2 and 2.13e-2 (wq, wk, wv); after 5 steps 8.3e-6, 1.22e-2, 1.06e-2
+# and 3.65e-3.
+TRAIN_F32_REF_TOL = {
+    "initial": {"loss": 8e-5, "wq": 7e-2, "wk": 7e-2, "wv": 5.5e-2},
+    "after 5 steps": {"loss": 2.1e-5, "wq": 3.1e-2, "wk": 2.7e-2, "wv": 9.2e-3},
+}
+# the tiny serving check: LlamaConfig.tiny() at pages of 4 tokens
+TINY_BLOCK, TINY_NEW_TOKENS = 4, 12
 FLASH_DTYPES = (torch.bfloat16, torch.float32)
 FLASH_OUTPUTS = {"flash_fwd": ("o",), "flash_bwd_dq": ("dq",), "flash_bwd_dkv": ("dk", "dv")}
 FLASH_KERNELS = {  # name: (TPU kernel it replaces, tensor-core products per (q, k) pair,
     #                    the CUDA kernel that runs at the trainer's shapes)
     "flash_fwd": ("ray_tpu/ops/flash_attention.py:33", 2, "flash_fwd_bf16_kernel<64>"),
-    "flash_bwd_dq": ("ray_tpu/ops/flash_attention.py:102", 3, "flash_bwd_dq_kernel<bf16,64>"),
+    "flash_bwd_dq": ("ray_tpu/ops/flash_attention.py:102", 3, "flash_bwd_dq_bf16_kernel<64>"),
     "flash_bwd_dkv": ("ray_tpu/ops/flash_attention.py:136", 4, "flash_bwd_dkv_bf16_kernel<64>"),
 }
 
@@ -196,9 +220,10 @@ def build_phase(card: str) -> None:
     for info in report.values():
         kernels.update(ptxas_kernels(info["ptxas"]))
     log(card, "ptxas: registers, stack frame and spill bytes per kernel", kernels=kernels)
-    # the bf16 forward and dK/dV: registers, dynamic shared memory and spills
+    # the bf16 forward, dQ and dK/dV: registers, dynamic shared memory and spills
     lib = _build.load("flash_attention")
     for kernel, fn in (("flash_fwd_bf16_kernel", lib.flash_fwd_smem_bytes),
+                       ("flash_bwd_dq_bf16_kernel", lib.flash_bwd_dq_smem_bytes),
                        ("flash_bwd_dkv_bf16_kernel", lib.flash_bwd_dkv_smem_bytes)):
         fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
         for D in (64, 128):
@@ -394,6 +419,40 @@ def decode_agreement_phase(card: str, cfg: llama.LlamaConfig, params) -> None:
         rel_tol=LOGIT_REL_TOL)
     profile_decode(card, lambda: llama.forward_paged(params, tok, cfg, pool_b, tables,
                                                      lengths, BLOCK))
+
+
+def tree_map(fn, params: dict) -> dict:
+    return {n: tree_map(fn, p) if isinstance(p, dict) else fn(p) for n, p in params.items()}
+
+
+def tiny_engine_phase(card: str) -> None:
+    """LlamaConfig.tiny() (head dim 16, group 2, float32) at pages of
+    TINY_BLOCK tokens: an engine on the card, every decode step through the
+    paged kernel, gives the greedy tokens of an engine on the CPU from the
+    same weights."""
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    reqs = [[5, 9, 13, 2, 7], [3, 3, 8], list(range(1, 40))]
+    tokens, launches, steps = {}, {}, {}
+    for where, device in (("cpu", torch.device("cpu")), ("card", DEVICE)):
+        eng = PagedLLMEngine(
+            PagedLLMConfig(model_config=cfg, max_batch_size=4, max_seq_len=cfg.max_seq_len,
+                           block_size=TINY_BLOCK),
+            params=tree_map(lambda t: t.to(device), params), device=device)
+        try:
+            pa.launches = 0
+            futs = [eng.generate(p, TINY_NEW_TOKENS) for p in reqs]
+            tokens[where] = [f.result(timeout=300).token_ids for f in futs]
+            launches[where], steps[where] = pa.launches, eng.stats()["decode_steps"]
+        finally:
+            eng.shutdown()
+    log(card, "tiny engine: LlamaConfig.tiny() at block size 4, card vs CPU",
+        head_dim=cfg.hd, group=cfg.num_heads // cfg.num_kv_heads, block_size=TINY_BLOCK,
+        decode_steps=steps, paged_decode_launches=launches,
+        same_tokens=tokens["card"] == tokens["cpu"])
+    assert steps["card"] > 0 and launches["card"] == cfg.num_layers * steps["card"], (
+        steps, launches)
+    assert launches["cpu"] == 0 and tokens["card"] == tokens["cpu"], tokens
 
 
 def device_events(prof) -> tuple[list, dict]:
@@ -599,6 +658,9 @@ def trainer_phase(card: str, cfg: llama.LlamaConfig):
                             device=DEVICE)
     torch.cuda.synchronize()
     t_init = time.monotonic() - t0
+    # the steps update the parameters in place; the copy waits on the host,
+    # out of the peak memory of the steps
+    initial = tree_map(lambda t: t.to("cpu", copy=True), state.params)
     step = spmd.make_train_step(cfg, opt, device=DEVICE)
     tokens, targets = train_batch(cfg)
     torch.cuda.reset_peak_memory_stats()
@@ -629,7 +691,7 @@ def trainer_phase(card: str, cfg: llama.LlamaConfig):
         train_mfu=flops / step_s / PEAK_FLOPS[torch.bfloat16],
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, flash_launches=launches,
         launches_per_step={n: c / TRAIN_STEPS for n, c in launches.items()})
-    return launches, state, step, (tokens, targets)
+    return launches, state, step, (tokens, targets), initial
 
 
 def training_agreement_phase(card: str, cfg: llama.LlamaConfig, params, batch) -> None:
@@ -664,6 +726,52 @@ def training_agreement_phase(card: str, cfg: llama.LlamaConfig, params, batch) -
         grad_rel_diff=rel_qkv, grad_rel_tol=TRAIN_QKV_GRAD_REL_TOL)
     assert rel_loss <= TRAIN_LOSS_REL_TOL and rel_norm <= TRAIN_GRAD_NORM_REL_TOL, got
     assert all(rel_qkv[n] <= tol for n, tol in TRAIN_QKV_GRAD_REL_TOL.items()), rel_qkv
+
+
+def plain_f32_attention(q, k, v, causal: bool = True):
+    """Plain float32 attention for the training checks: q, k and v upcast,
+    the probabilities kept float32, the output rounded to q's dtype once
+    (the flash forward's plain version, differentiated by autograd)."""
+    return fa.flash_fwd_ref(q, k, v, causal)[0]
+
+
+def loss_and_qkv_grads(cfg: llama.LlamaConfig, params, batch, attn_fn) -> tuple:
+    """loss_fn through attn_fn (None: auto_attention, the flash kernels at
+    the trainer's shapes) and the float32 gradients of wq, wk and wv."""
+    names = list(TRAIN_QKV_GRAD_REL_TOL)
+    wanted = [params["layers"][n].requires_grad_() for n in names]
+    loss = llama.loss_fn(params, *batch, cfg, attn_fn)
+    grads = torch.autograd.grad(loss, wanted)
+    return loss.item(), {n: g.float() for n, g in zip(names, grads)}
+
+
+def attention_gaps(got: tuple, ref: tuple) -> dict:
+    """Relative gaps of one (loss, gradients) reading against another's."""
+    gaps = {"loss": abs(got[0] - ref[0]) / abs(ref[0])}
+    for n, g in got[1].items():
+        gaps[n] = (torch.linalg.vector_norm(g - ref[1][n])
+                   / torch.linalg.vector_norm(ref[1][n])).item()
+    return gaps
+
+
+def f32_reference_phase(card: str, cfg: llama.LlamaConfig, points: dict, batch) -> None:
+    """The loss and the wq/wk/wv gradients through the flash kernels against
+    plain float32 attention from the same parameters, at each point."""
+    readings = {}
+    for label, params in points.items():
+        before = flash_launches()
+        kernels = loss_and_qkv_grads(cfg, params, batch, None)
+        mid = flash_launches()
+        plain = loss_and_qkv_grads(cfg, params, batch, plain_f32_attention)
+        assert all(mid[n] > before[n] for n in mid) and flash_launches() == mid
+        readings[label] = attention_gaps(kernels, plain)
+        readings[label]["loss_kernels"], readings[label]["loss_plain"] = kernels[0], plain[0]
+        del kernels, plain
+    log(card, "training: flash kernels vs plain float32 attention (relative gaps)",
+        readings=readings, tol=TRAIN_F32_REF_TOL)
+    over = [(p, n) for p, gaps in readings.items() for n, tol in TRAIN_F32_REF_TOL[p].items()
+            if not gaps[n] <= tol]
+    assert not over, (over, readings)
 
 
 def profile_train_step(card: str, step, state, batch) -> None:
@@ -709,6 +817,7 @@ def main() -> int:
     params, kernels[0]["launches"] = main_path_phase(card, cfg)
     decode_agreement_phase(card, cfg, params)
     del params
+    tiny_engine_phase(card)
     gc.collect()
     torch.cuda.empty_cache()
     t_serve = time.monotonic() - t_start
@@ -716,10 +825,14 @@ def main() -> int:
     flash = flash_kernel_phase(card)
     torch.cuda.empty_cache()
     cfg_train = llama.LlamaConfig.llama_1b()
-    launches, state, step, batch = trainer_phase(card, cfg_train)
+    launches, state, step, batch, initial = trainer_phase(card, cfg_train)
     for entry in flash:
         entry["launches"] = launches[entry["name"]]
     training_agreement_phase(card, cfg_train, state.params, batch)
+    initial = tree_map(lambda t: t.to(DEVICE), initial)
+    f32_reference_phase(card, cfg_train, {"initial": initial, "after 5 steps": state.params},
+                        batch)
+    del initial
     profile_train_step(card, step, state, batch)
     kernels += flash
     log(card, "smoke wall", seconds=time.monotonic() - t_start, serving_seconds=t_serve,

@@ -3,7 +3,8 @@
 // Replaces the three Pallas TPU kernels of ray_tpu/ops/flash_attention.py:
 //   flash_fwd_bf16_kernel,
 //   flash_fwd_f32_kernel <- _fwd_kernel     (:33)  O and the row logsumexp
-//   flash_bwd_dq_kernel  <- _bwd_dq_kernel  (:102) dQ = sum_k dS K
+//   flash_bwd_dq_bf16_kernel,
+//   flash_bwd_dq_f32_kernel <- _bwd_dq_kernel (:102) dQ = sum_k dS K
 //   flash_bwd_dkv_bf16_kernel,
 //   flash_bwd_dkv_f32_kernel <- _bwd_dkv_kernel (:136) dV = sum_q P^T dO, dK = sum_q dS^T Q
 // with the reference's rules: scores S = Q K^T * scale in float32, NEG_INF is
@@ -14,7 +15,10 @@
 //
 // Layouts: q, o, dO, dq [B, S, Hq, D]; k, v, dk, dv [B, S, Hkv, D], each read
 // or written through its (batch, seq, head) strides with unit stride over D;
-// lse and delta [B, Hq, S] float32. Query head h uses kv head h / g.
+// lse and delta [B, Hq, S] float32. Query head h uses kv head h / g. The
+// kernels take head dims 64 and 128; the Python wrapper zero-pads any other
+// multiple of 8 up to 128 and passes the caller's head dim, from which the
+// launchers take the scale 1/sqrt(head dim).
 //
 // Bound: operations. At the training shapes (B 4, S 2048, Hq 32, Hkv 8, D 64,
 // causal) the forward does 4 * B * Hq * D * S (S + 1) / 2 flops on ~85 MB, the
@@ -108,45 +112,63 @@
 //    Two key slabs a warp would halve those reads only with both slabs' K
 //    and V resident, 64 more registers than the accumulators leave.
 //
-// float32 (flash_fwd_f32_kernel, flash_bwd_dkv_f32_kernel) and dQ keep the
-// first design, a block GEMM through shared memory:
-//  - bf16 dQ: 16x16x16 WMMA tiles (mma.sync), bf16 operands from shared
-//    memory, float32 accumulation. dS is rounded to bf16 before its
-//    product; the softmax statistics and all sums stay float32. float32
-//    inputs take a register-tiled CUDA-core GEMM with the same structure,
-//    exact float32 throughout (mma.sync has no float32 product, and float32
-//    is a checking type).
-//  - float32 forward: one CTA per (q tile, q head, batch) loops over the k
-//    tiles up to the diagonal (causal), carrying m, l and the accumulator in
-//    shared memory. The TPU kernel carries them in scratch along a
-//    sequential grid axis; here the loop is inside the CTA and needs no
-//    cross-CTA reduction.
+// bf16 dQ (flash_bwd_dq_bf16_kernel), the FlashAttention-2 dQ with the
+// queries as the M dimension, as in the forward:
+//  - one CTA per (q tile of 64 rows, q head, batch), 4 warps, each owning
+//    one m16 slab of rows and running the whole k loop for it. The grid puts
+//    the q tile on its slowest axis, reversed, as the forward does.
+//  - Q and dO of the tile are copied once by cp.async; at D 64 each warp
+//    then holds its slab's Q and dO as ldmatrix.x4 A fragments, at D 128
+//    (where those would not fit beside the accumulator, S and dP) they are
+//    read from shared memory per use. The slab's lse and delta are read once
+//    into registers: a thread needs rows lane / 4 and + 8 only.
+//  - K and V tiles of 64 keys stream through the forward's two-stage
+//    cp.async ring (zero-filled past S, one __syncthreads per tile).
+//  - S = Q K^T and dP = dO V^T by mma.sync, K's and V's B fragments from
+//    ldmatrix; both stay in C fragments. P = 2^(s c - lse log2 e), one FMA
+//    and one ex2 per score, a dead row (lse NEG_INF) taking NEG_INF in place
+//    of -lse log2 e as in dK/dV. The mask is applied only on tiles that cross
+//    the diagonal or the ragged end, and a warp skips a tile whose keys all
+//    follow its rows.
+//  - dS = P (dP - delta) scale in registers, rounded to bf16 pairs, two n8
+//    tiles forming one k16 A fragment, and dQ += dS K takes K's B fragments
+//    from ldmatrix.x4.trans of the same K stage. dQ stays float32 in C
+//    fragments until the epilogue stores it as bf16 pairs (rows past S are
+//    not stored).
+//  - what still holds it back against the bound: mma.sync rather than
+//    wgmma, the exponentials and dS issued by the same warps between the
+//    products, and one K/V tile in flight. delta = rowsum(dO * O) is still a
+//    PyTorch reduction before the call.
+//
+// float32 (flash_fwd_f32_kernel, flash_bwd_dq_f32_kernel,
+// flash_bwd_dkv_f32_kernel) keeps the first design, a block GEMM through
+// shared memory on the CUDA cores, exact float32 throughout (mma.sync has no
+// float32 product, and float32 is a checking type):
+//  - forward: one CTA per (q tile, q head, batch) loops over the k tiles up
+//    to the diagonal (causal), carrying m, l and the accumulator in shared
+//    memory. The TPU kernel carries them in scratch along a sequential grid
+//    axis; here the loop is inside the CTA and needs no cross-CTA reduction.
 //  - dQ: one CTA per (q tile, q head, batch), looping over k tiles up to the
 //    diagonal.
-//  - float32 dK/dV: one CTA per (k tile, kv head, batch), looping over the
-//    group's q heads and q tiles as the bf16 kernel does.
+//  - dK/dV: one CTA per (k tile, kv head, batch), looping over the group's
+//    q heads and q tiles as the bf16 kernel does.
 //  - no repeat and no padding: heads map by index, rows past S load as zeros
 //    and are masked (keys) or not stored (queries).
-// Known limits of dQ: global loads are synchronous, the accumulator
-// round-trips through shared memory between WMMA products, and wgmma is not
-// used. The bf16 kernels' fragment helpers are its next step.
 //
 // C interface (bound with ctypes): each *_launch returns the cudaError_t of
 // its launch (0 on success). `strides` points to host int64 triples
 // (batch, seq, head) of the strided tensors, in argument order.
-// flash_fwd_smem_bytes and flash_bwd_dkv_smem_bytes report a forward or
-// dK/dV CTA's dynamic shared memory.
+// flash_fwd_smem_bytes, flash_bwd_dq_smem_bytes and flash_bwd_dkv_smem_bytes
+// report a forward, dQ or dK/dV CTA's dynamic shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
@@ -160,7 +182,6 @@ struct Strides {
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_float<bf16>(float x) { return __float2bfloat16(x); }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -176,13 +197,13 @@ __device__ __forceinline__ float warp_max(float v) {
 
 constexpr size_t up128(size_t x) { return (x + 127) & ~size_t(127); }
 
-// Tile sizes and padded shared-memory row lengths. Rows are padded by 16
-// bytes so that WMMA's row loads spread over the banks; every buffer starts
-// on a 128-byte boundary (WMMA needs 32).
+// Tile sizes and padded shared-memory row lengths of the float32 kernels.
+// Rows are padded by 16 bytes so that row loads spread over the banks; every
+// buffer starts on a 128-byte boundary.
 template <typename T, int D>
 struct Tiles {
   static constexpr int BQ = 64;
-  static constexpr int BK = sizeof(T) == 2 ? 64 : 32;
+  static constexpr int BK = 32;
   static constexpr int LD = D + 16 / (int)sizeof(T);   // T tile [rows][D]
   static constexpr int LP = BK + 16 / (int)sizeof(T);  // T tile [BQ][BK]
   static constexpr int LS = BK + 4;                    // float tile [BQ][BK]
@@ -236,36 +257,9 @@ __device__ __forceinline__ void zero(float* t, int n) {
   for (int x = threadIdx.x; x < n; x += kThreads) t[x] = 0.f;
 }
 
-// C[M][N] (+)= sum_k A(m, k) B(k, n), all in shared memory, C float32.
+// C[M][N] (+)= sum_k A(m, k) B(k, n), all in shared memory, float32.
 // A(m, k) = A[m * lda + k], or A[k * lda + m] with kColA (a transposed read);
 // B(k, n) = B[k * ldb + n], or B[n * ldb + k] with kColB.
-// bf16: warp w takes 16x16 output tiles w, w + 8, ...; WMMA 16x16x16.
-template <bool kColA, bool kColB, int M, int N, int K, bool kAccumulate>
-__device__ __forceinline__ void gemm(float* C, int ldc, const bf16* A, int lda, const bf16* B,
-                                     int ldb) {
-  using LA = std::conditional_t<kColA, wmma::col_major, wmma::row_major>;
-  using LB = std::conditional_t<kColB, wmma::col_major, wmma::row_major>;
-  constexpr int TN = N / 16;
-  const int warp = threadIdx.x / 32;
-  for (int t = warp; t < (M / 16) * TN; t += kWarps) {
-    const int tm = t / TN * 16, tn = t % TN * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    if (kAccumulate)
-      wmma::load_matrix_sync(c, C + tm * ldc + tn, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < K; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b;
-      wmma::load_matrix_sync(a, kColA ? A + kk * lda + tm : A + tm * lda + kk, lda);
-      wmma::load_matrix_sync(b, kColB ? B + tn * ldb + kk : B + kk * ldb + tn, ldb);
-      wmma::mma_sync(c, a, b, c);
-    }
-    wmma::store_matrix_sync(C + tm * ldc + tn, c, ldc, wmma::mem_row_major);
-  }
-}
-
 // float32: thread (ty, tx) of a 16x16 layout owns C[ty + 16 i][tx + 16 j].
 template <bool kColA, bool kColB, int M, int N, int K, bool kAccumulate>
 __device__ __forceinline__ void gemm(float* C, int ldc, const float* A, int lda, const float* B,
@@ -401,7 +395,7 @@ template <int D>
 __global__ void __launch_bounds__(FwdTiles<D>::kThreads, FwdTiles<D>::kMinBlocks) flash_fwd_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ o, float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
-    Strides so, int S, int g, int causal, float scale_log2) {
+    Strides so, int S, int g, int causal, float scale) {
   using L = FwdTiles<D>;
   constexpr int BQ = L::BQ, BK = L::BK, LD = L::LD, NT = L::kThreads, MS = L::kSlabs;
   constexpr int KD = D / 16;  // k16 steps of Q K^T
@@ -421,6 +415,7 @@ __global__ void __launch_bounds__(FwdTiles<D>::kThreads, FwdTiles<D>::kMinBlocks
   const int warp_q0 = q0 + warp_r0;
   const int row0 = warp_q0 + lane / 4;  // this thread's rows: row0 + 16 i and + 8
   const int col_t = 2 * (lane % 4);     // its first column in each n8 tile
+  const float scale_log2 = scale * kLog2e;
   const bf16* k_head = k + b * sk.b + kh * sk.h;
   const bf16* v_head = v + b * sv.b + kh * sv.h;
   const int n_k = causal ? (min(q0 + BQ, S) - 1) / BK + 1 : (S + BK - 1) / BK;
@@ -557,7 +552,6 @@ __global__ void __launch_bounds__(FwdTiles<D>::kThreads, FwdTiles<D>::kMinBlocks
   // epilogue: rows past S are not stored; lse = m scale + ln l
   bf16* o_head = o + b * so.b + h * so.h;
   float* lse_row = lse + ((size_t)b * hq + h) * S;
-  const float scale = 1.0f / sqrtf((float)D);
 #pragma unroll
   for (int i = 0; i < MS; ++i)
 #pragma unroll
@@ -689,13 +683,14 @@ __device__ __forceinline__ void p_and_ds(const float* s_s, const float* dp_s, co
   }
 }
 
-// ------------------------------------------------------------------ dQ
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdq, int S,
-    int g, int causal, float scale) {
+// ------------------------------------------------------------------ float32 dQ
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq, Strides sq, Strides sk, Strides sv,
+    Strides sdo, Strides sdq, int S, int g, int causal, float scale) {
+  using T = float;
   using L = Tiles<T, D>;
   constexpr int BQ = L::BQ, BK = L::BK;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -738,6 +733,199 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     __syncthreads();
   }
   store_tile<T, BQ, D>(dq + b * sdq.b + h * sdq.h, sdq.s, q0, S, acc, L::LA, nullptr);
+}
+
+// ------------------------------------------------------------------ bf16 dQ
+// Tiles of the bf16 dQ kernel: 64 query rows a CTA, 4 warps of one m16 slab
+// each, k tiles of 64 keys, rows padded by 16 bytes. Shared memory holds Q
+// and dO of the tile, then K and V of two ring stages. A k tile is taken 32
+// keys at a time, so that only those keys' S and dP (32 registers) are
+// live. At D 64 each warp keeps its slab's Q and dO as ldmatrix.x4 A
+// fragments, and kMinBlocks caps the registers at 170 for 3 CTAs a SM with
+// no spill; at D 128, where the dQ accumulator alone takes 64 registers, Q
+// and dO are read from shared memory per use.
+template <int D>
+struct DqTiles {
+  static constexpr int BQ = 64;
+  static constexpr int BK = 64;
+  static constexpr int KC = 32;  // keys whose S and dP are live at once
+  static constexpr int kThreads = 32 * BQ / 16;
+  static constexpr bool kResidentQ = D == 64;  // Q/dO A fragments kept in registers
+  static constexpr int kMinBlocks = D == 64 ? 3 : 2;
+  static constexpr int LD = D + 8;
+  static constexpr size_t q_elems = (size_t)BQ * LD;   // one Q or dO tile
+  static constexpr size_t kv_elems = (size_t)BK * LD;  // one K or V tile
+  static constexpr size_t smem = (2 * q_elems + 4 * kv_elems) * sizeof(bf16);
+};
+
+template <int D>
+__global__ void __launch_bounds__(DqTiles<D>::kThreads, DqTiles<D>::kMinBlocks) flash_bwd_dq_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dq, Strides sq, Strides sk, Strides sv,
+    Strides sdo, Strides sdq, int S, int g, int causal, float scale) {
+  using L = DqTiles<D>;
+  constexpr int BQ = L::BQ, BK = L::BK, KC = L::KC, LD = L::LD, NT = L::kThreads;
+  constexpr int KD = D / 16;  // k16 steps of Q K^T and dO V^T
+  constexpr int NS = KC / 8;  // n8 score tiles of one key chunk
+  constexpr int NO = D / 8;   // n8 tiles of dQ
+  constexpr int KR = L::kResidentQ ? KD : 1;
+  static_assert(KD % 2 == 0 && NO % 2 == 0 && KC % 16 == 0 && BK % KC == 0,
+                "x4 loads take pairs");
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);
+  bf16* do_s = q_s + L::q_elems;
+  bf16* kv_s = do_s + L::q_elems;  // stage t: K, V at 2t, 2t + 1
+
+  // blocks start in x-fastest order: every (head, batch) of the last q tile
+  // first, so the longest causal tiles lead and the shortest form the tail
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ, h = blockIdx.x, b = blockIdx.y;
+  const int hq = gridDim.x, kh = h / g;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp_q0 = q0 + 16 * warp;   // this warp's rows: warp_q0 .. + 15
+  const int row0 = warp_q0 + lane / 4;  // this thread's rows: row0 and row0 + 8
+  const int col_t = 2 * (lane % 4);     // its first column in each n8 tile
+  const float scale_log2 = scale * kLog2e;
+  const bf16* k_head = k + b * sk.b + kh * sk.h;
+  const bf16* v_head = v + b * sv.b + kh * sv.h;
+  const int n_k = causal ? (min(q0 + BQ, S) - 1) / BK + 1 : (S + BK - 1) / BK;
+
+  cp_async_tile<BQ, D, LD, NT>(q_s, q + b * sq.b + h * sq.h, sq.s, q0, S);
+  cp_async_tile<BQ, D, LD, NT>(do_s, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S);
+  cp_async_tile<BK, D, LD, NT>(kv_s, k_head, sk.s, 0, S);
+  cp_async_tile<BK, D, LD, NT>(kv_s + L::kv_elems, v_head, sv.s, 0, S);
+  cp_async_commit();
+
+  // lse and delta of this thread's two rows, fixed for the whole CTA. A dead
+  // row (lse NEG_INF) and a row past S take NEG_INF in place of -lse log2 e,
+  // so their P is 2^(-huge) = 0 (the plain exponent would overflow to +inf).
+  float nl[2], dl[2];
+  const size_t row_base = ((size_t)b * hq + h) * S;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const float l = row < S ? lse[row_base + row] : kNegInf;
+    nl[r] = l > kNegInf * 0.5f ? -l * kLog2e : kNegInf;
+    dl[r] = row < S ? delta[row_base + row] : 0.f;
+  }
+
+  uint32_t qf[KR][4], dof[KR][4];
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  // this warp's slab of Q or dO as the A fragment of k16 step kd
+  const int a_off = (16 * warp + lane % 16) * LD + lane / 16 * 8;
+
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int k0 = kt * BK;
+    // Tile kt is the only copy in flight. After the barrier it is visible to
+    // every warp, and every warp is done with tile kt - 1, whose stage the
+    // copy of tile kt + 1 then reuses.
+    cp_async_wait_all();
+    __syncthreads();
+    if (kt + 1 < n_k) {
+      bf16* next = kv_s + ((kt + 1) & 1) * 2 * L::kv_elems;
+      cp_async_tile<BK, D, LD, NT>(next, k_head, sk.s, k0 + BK, S);
+      cp_async_tile<BK, D, LD, NT>(next + L::kv_elems, v_head, sv.s, k0 + BK, S);
+      cp_async_commit();
+    }
+    if (L::kResidentQ && kt == 0) {
+#pragma unroll
+      for (int kd = 0; kd < KR; ++kd) {
+        ldsm_x4(qf[kd], q_s + a_off + kd * 16);
+        ldsm_x4(dof[kd], do_s + a_off + kd * 16);
+      }
+    }
+    const bf16* k_st = kv_s + (kt & 1) * 2 * L::kv_elems;
+    const bf16* v_st = k_st + L::kv_elems;
+#pragma unroll 1
+    for (int c0 = 0; c0 < BK; c0 += KC) {
+      const int kc0 = k0 + c0;  // this chunk's keys: kc0 .. + KC - 1
+      if (causal && kc0 > warp_q0 + 15) break;  // every key follows every row here
+
+      // S = Q K^T and dP = dO V^T: one x4 load of K (V) gives the B
+      // fragments of two k16 steps of one n8 key tile
+      float s[NS][4], dp[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < KD; kd += 2) {
+        uint32_t qa[2][4], da[2][4];
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          if constexpr (L::kResidentQ) {
+#pragma unroll
+            for (int y = 0; y < 4; ++y) {
+              qa[x][y] = qf[kd + x][y];
+              da[x][y] = dof[kd + x][y];
+            }
+          } else {
+            ldsm_x4(qa[x], q_s + a_off + (kd + x) * 16);
+            ldsm_x4(da[x], do_s + a_off + (kd + x) * 16);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          const int b_off = (c0 + 8 * j + lane % 8) * LD + kd * 16 + lane / 8 * 8;
+          uint32_t bk[4], bv[4];
+          ldsm_x4(bk, k_st + b_off);
+          mma_bf16(s[j], qa[0], bk[0], bk[1]);
+          mma_bf16(s[j], qa[1], bk[2], bk[3]);
+          ldsm_x4(bv, v_st + b_off);
+          mma_bf16(dp[j], da[0], bv[0], bv[1]);
+          mma_bf16(dp[j], da[1], bv[2], bv[3]);
+        }
+      }
+
+      // P = 2^(s c - lse log2 e) and dS = P (dP - delta) scale, in place of
+      // S. The mask is applied only where the chunk crosses the diagonal or
+      // the ragged end (keys past S are zero-filled rows, whose P is not 0).
+      const bool masked = kc0 + KC > S || (causal && kc0 + KC - 1 > warp_q0);
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = ex2(fmaf(s[j][e], scale_log2, nl[e >> 1]));
+          if (masked && !key_live(row0 + (e & 2) * 4, kc0 + 8 * j + col_t + (e & 1), S, causal))
+            p = 0.f;
+          s[j][e] = p * (dp[j][e] - dl[e >> 1]) * scale;
+        }
+
+      // dQ += dS K: score tiles 2t and 2t + 1 are the A fragment of k16
+      // step t; one transposed x4 load of K gives the B fragments of two n8
+      // tiles
+#pragma unroll
+      for (int t = 0; t < KC / 16; ++t) {
+        uint32_t a[4];
+        a[0] = pack_bf16(s[2 * t][0], s[2 * t][1]);
+        a[1] = pack_bf16(s[2 * t][2], s[2 * t][3]);
+        a[2] = pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]);
+        a[3] = pack_bf16(s[2 * t + 1][2], s[2 * t + 1][3]);
+#pragma unroll
+        for (int n = 0; n < NO; n += 2) {
+          uint32_t bk[4];
+          ldsm_x4_trans(bk, k_st + (c0 + 16 * t + lane % 16) * LD + n * 8 + lane / 16 * 8);
+          mma_bf16(acc[n], a, bk[0], bk[1]);
+          mma_bf16(acc[n + 1], a, bk[2], bk[3]);
+        }
+      }
+    }
+  }
+
+  // epilogue: rows past S are not stored
+  bf16* dq_head = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    bf16* dst = dq_head + row * sdq.s + col_t;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
+          __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
+  }
 }
 
 // ------------------------------------------------------------------ bf16 dK / dV
@@ -1034,7 +1222,7 @@ Strides stride(const long long* s, int i) { return Strides{s[3 * i], s[3 * i + 1
 
 template <int D>
 cudaError_t fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
-                     const long long* st, int B, int S, int Hkv, int g, int causal,
+                     const long long* st, int B, int S, int Hkv, int g, int causal, float scale,
                      cudaStream_t stream) {
   using L = FwdTiles<D>;
   auto kernel = flash_fwd_bf16_kernel<D>;
@@ -1046,15 +1234,16 @@ cudaError_t fwd_bf16(const void* q, const void* k, const void* v, void* o, void*
   kernel<<<grid, L::kThreads, L::smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), static_cast<float*>(lse), stride(st, 0), stride(st, 1),
-      stride(st, 2), stride(st, 3), S, g, causal, kLog2e / sqrtf((float)D));
+      stride(st, 2), stride(st, 3), S, g, causal, scale);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                const long long* st, int B, int S, int Hkv, int g, int causal, cudaStream_t stream) {
+                const long long* st, int B, int S, int Hkv, int g, int causal, float scale,
+                cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
-    return fwd_bf16<D>(q, k, v, o, lse, st, B, S, Hkv, g, causal, stream);
+    return fwd_bf16<D>(q, k, v, o, lse, st, B, S, Hkv, g, causal, scale, stream);
   } else {
     using L = Tiles<T, D>;
     auto kernel = flash_fwd_f32_kernel<D>;
@@ -1064,33 +1253,56 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse,
     kernel<<<grid, kThreads, L::fwd_smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<T*>(o), static_cast<float*>(lse), stride(st, 0), stride(st, 1),
-        stride(st, 2), stride(st, 3), S, g, causal, 1.0f / sqrtf((float)D));
+        stride(st, 2), stride(st, 3), S, g, causal, scale);
     return cudaGetLastError();
   }
+}
+
+template <int D>
+cudaError_t bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
+                        const void* lse, const void* delta, void* dq, const long long* st, int B,
+                        int S, int Hkv, int g, int causal, float scale, cudaStream_t stream) {
+  using L = DqTiles<D>;
+  auto kernel = flash_bwd_dq_bf16_kernel<D>;
+  const int q_tiles = (S + L::BQ - 1) / L::BQ;
+  if (q_tiles > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = prepare(kernel, L::smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(Hkv * g, B, q_tiles);
+  kernel<<<grid, L::kThreads, L::smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), stride(st, 0), stride(st, 1),
+      stride(st, 2), stride(st, 3), stride(st, 4), S, g, causal, scale);
+  return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                    const void* delta, void* dq, const long long* st, int B, int S, int Hkv, int g,
-                   int causal, cudaStream_t stream) {
-  using L = Tiles<T, D>;
-  auto kernel = flash_bwd_dq_kernel<T, D>;
-  cudaError_t err = prepare(kernel, L::dq_smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + L::BQ - 1) / L::BQ, Hkv * g, B);
-  kernel<<<grid, kThreads, L::dq_smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), stride(st, 0), stride(st, 1),
-      stride(st, 2), stride(st, 3), stride(st, 4), S, g, causal, 1.0f / sqrtf((float)D));
-  return cudaGetLastError();
+                   int causal, float scale, cudaStream_t stream) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    return bwd_dq_bf16<D>(q, k, v, dout, lse, delta, dq, st, B, S, Hkv, g, causal, scale, stream);
+  } else {
+    using L = Tiles<T, D>;
+    auto kernel = flash_bwd_dq_f32_kernel<D>;
+    cudaError_t err = prepare(kernel, L::dq_smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((S + L::BQ - 1) / L::BQ, Hkv * g, B);
+    kernel<<<grid, kThreads, L::dq_smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<T*>(dq), stride(st, 0), stride(st, 1),
+        stride(st, 2), stride(st, 3), stride(st, 4), S, g, causal, scale);
+    return cudaGetLastError();
+  }
 }
 
 template <int D>
 cudaError_t bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta, void* dk, void* dv,
                          const long long* st, int B, int S, int Hkv, int g, int causal,
-                         cudaStream_t stream) {
+                         float scale, cudaStream_t stream) {
   using L = DkvTiles<D>;
   auto kernel = flash_bwd_dkv_bf16_kernel<D>;
   const int k_tiles = (S + L::BK - 1) / L::BK;
@@ -1103,16 +1315,17 @@ cudaError_t bwd_dkv_bf16(const void* q, const void* k, const void* v, const void
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
       stride(st, 0), stride(st, 1), stride(st, 2), stride(st, 3), stride(st, 4), stride(st, 5),
-      S, g, causal, 1.0f / sqrtf((float)D));
+      S, g, causal, scale);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dk, void* dv, const long long* st,
-                    int B, int S, int Hkv, int g, int causal, cudaStream_t stream) {
+                    int B, int S, int Hkv, int g, int causal, float scale, cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
-    return bwd_dkv_bf16<D>(q, k, v, dout, lse, delta, dk, dv, st, B, S, Hkv, g, causal, stream);
+    return bwd_dkv_bf16<D>(q, k, v, dout, lse, delta, dk, dv, st, B, S, Hkv, g, causal, scale,
+                           stream);
   } else {
     using L = Tiles<T, D>;
     auto kernel = flash_bwd_dkv_f32_kernel<D>;
@@ -1124,13 +1337,16 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
         static_cast<const T*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
         stride(st, 0), stride(st, 1), stride(st, 2), stride(st, 3), stride(st, 4),
-        stride(st, 5), S, g, causal, 1.0f / sqrtf((float)D));
+        stride(st, 5), S, g, causal, scale);
     return cudaGetLastError();
   }
 }
 
-bool valid(int B, int S, int Hkv, int g) {
-  return B > 0 && S > 0 && Hkv > 0 && g > 0 && B <= 65535 && (long long)Hkv * g <= 65535;
+// The kernels' shapes; the scale 1/sqrt(scale_dim) is the caller's head dim,
+// which the Python wrapper zero-pads up to D (scale_dim <= D).
+bool valid(int B, int S, int Hkv, int g, int D, int scale_dim) {
+  return B > 0 && S > 0 && Hkv > 0 && g > 0 && B <= 65535 && (long long)Hkv * g <= 65535 &&
+         scale_dim > 0 && scale_dim <= D;
 }
 
 }  // namespace
@@ -1140,21 +1356,22 @@ bool valid(int B, int S, int Hkv, int g) {
 #define FLASH_DISPATCH(FN, ...)                                                     \
   {                                                                                 \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                             \
-    if (dtype == 0 && D == 64) return (int)FN<float, 64>(__VA_ARGS__, s);           \
-    if (dtype == 0 && D == 128) return (int)FN<float, 128>(__VA_ARGS__, s);         \
-    if (dtype == 1 && D == 64) return (int)FN<bf16, 64>(__VA_ARGS__, s);            \
-    if (dtype == 1 && D == 128) return (int)FN<bf16, 128>(__VA_ARGS__, s);          \
+    const float scale = 1.0f / sqrtf((float)scale_dim);                             \
+    if (dtype == 0 && D == 64) return (int)FN<float, 64>(__VA_ARGS__, scale, s);    \
+    if (dtype == 0 && D == 128) return (int)FN<float, 128>(__VA_ARGS__, scale, s);  \
+    if (dtype == 1 && D == 64) return (int)FN<bf16, 64>(__VA_ARGS__, scale, s);     \
+    if (dtype == 1 && D == 128) return (int)FN<bf16, 128>(__VA_ARGS__, scale, s);   \
     return (int)cudaErrorInvalidValue;                                              \
   }
 
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* o, void* lse,
                                 const long long* strides, int B, int S, int Hkv, int g, int D,
-                                int causal, int dtype, void* stream) {
-  if (!valid(B, S, Hkv, g)) return (int)cudaErrorInvalidValue;
+                                int causal, int dtype, int scale_dim, void* stream) {
+  if (!valid(B, S, Hkv, g, D, scale_dim)) return (int)cudaErrorInvalidValue;
   FLASH_DISPATCH(fwd, q, k, v, o, lse, strides, B, S, Hkv, g, causal);
 }
 
-// Dynamic shared memory of one forward CTA, in bytes (for reports).
+// Dynamic shared memory of one forward, dQ or dK/dV CTA, in bytes (for reports).
 extern "C" int flash_fwd_smem_bytes(int D, int dtype) {
   if (dtype == 1 && D == 64) return (int)FwdTiles<64>::smem;
   if (dtype == 1 && D == 128) return (int)FwdTiles<128>::smem;
@@ -1163,7 +1380,14 @@ extern "C" int flash_fwd_smem_bytes(int D, int dtype) {
   return -1;
 }
 
-// Dynamic shared memory of one dK/dV CTA, in bytes (for reports).
+extern "C" int flash_bwd_dq_smem_bytes(int D, int dtype) {
+  if (dtype == 1 && D == 64) return (int)DqTiles<64>::smem;
+  if (dtype == 1 && D == 128) return (int)DqTiles<128>::smem;
+  if (dtype == 0 && D == 64) return (int)Tiles<float, 64>::dq_smem;
+  if (dtype == 0 && D == 128) return (int)Tiles<float, 128>::dq_smem;
+  return -1;
+}
+
 extern "C" int flash_bwd_dkv_smem_bytes(int D, int dtype) {
   if (dtype == 1 && D == 64) return (int)DkvTiles<64>::smem;
   if (dtype == 1 && D == 128) return (int)DkvTiles<128>::smem;
@@ -1175,15 +1399,15 @@ extern "C" int flash_bwd_dkv_smem_bytes(int D, int dtype) {
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, const void* dout,
                                    const void* lse, const void* delta, void* dq,
                                    const long long* strides, int B, int S, int Hkv, int g, int D,
-                                   int causal, int dtype, void* stream) {
-  if (!valid(B, S, Hkv, g)) return (int)cudaErrorInvalidValue;
+                                   int causal, int dtype, int scale_dim, void* stream) {
+  if (!valid(B, S, Hkv, g, D, scale_dim)) return (int)cudaErrorInvalidValue;
   FLASH_DISPATCH(bwd_dq, q, k, v, dout, lse, delta, dq, strides, B, S, Hkv, g, causal);
 }
 
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v, const void* dout,
                                     const void* lse, const void* delta, void* dk, void* dv,
                                     const long long* strides, int B, int S, int Hkv, int g, int D,
-                                    int causal, int dtype, void* stream) {
-  if (!valid(B, S, Hkv, g)) return (int)cudaErrorInvalidValue;
+                                    int causal, int dtype, int scale_dim, void* stream) {
+  if (!valid(B, S, Hkv, g, D, scale_dim)) return (int)cudaErrorInvalidValue;
   FLASH_DISPATCH(bwd_dkv, q, k, v, dout, lse, delta, dk, dv, strides, B, S, Hkv, g, causal);
 }

@@ -23,10 +23,14 @@
 //    ceil(len / BS) pages, so dead pages cost nothing; the CTA reads its
 //    length and its table row itself (no scalar prefetch).
 //  - per page, K and V [BS, D] land in shared memory with 16-byte coalesced
-//    loads; each warp takes whole key rows, lanes split D, and g dot products
-//    reduce by warp shuffles; the (m, l) update for a head is done by one
-//    warp; the float32 accumulator acc[g, D] stays in registers, thread t
-//    owning column t % D.
+//    loads; each warp takes whole key rows, lanes split D (D / 32 elements
+//    each; at D 16 one element on each of the first 16 lanes, the rest
+//    idle), and g dot products reduce by warp shuffles; the (m, l) update
+//    for a head is done by one warp; the float32 accumulator acc[g, D]
+//    stays in registers, thread t owning column t % D.
+//  - head dims 16, 32, 64 and 128, a group of at most 8, and any block size
+//    from 1 to 64: a page row of D >= 16 values is a whole number of 16-byte
+//    vectors, so every page starts 16-byte aligned.
 // Known limit: B * Hkv CTAs (64 at batch 8 of Llama-3-8B) fill half of the
 // 132 SMs and each CTA waits on its page load before computing. Split-K
 // over pages with a combine pass and cp.async/TMA double buffering are the
@@ -71,7 +75,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pages, const T* __restrict__ v_pages,
     const int* __restrict__ tables, const int* __restrict__ lengths, T* __restrict__ out,
     int num_pages_pool, int block_size, int max_blocks, int g, float scale) {
-  constexpr int kPerLane = D / 32;           // q/k elements each lane holds
+  constexpr int kPerLane = D >= 32 ? D / 32 : 1;  // q/k elements each lane holds
   constexpr int kHeadStep = kThreads / D;    // threads sharing one column
   constexpr int kOwn = kMaxG / kHeadStep;    // heads a thread accumulates
   constexpr int kWarpHeads = kMaxG / kWarps; // heads a warp runs softmax for
@@ -86,6 +90,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   const int b = blockIdx.x, kh = blockIdx.y;
   const int hkv = gridDim.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool lane_in = lane * kPerLane < D;  // false only for lanes 16-31 at D 16
   const int hq = hkv * g;
   const int len = lengths[b];
   const int n_pages = len > 0 ? min((len + block_size - 1) / block_size, max_blocks) : 0;
@@ -96,7 +101,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   for (int h = 0; h < kMaxG; ++h) {
     const T* qrow = q + ((size_t)b * hq + (size_t)kh * g + h) * D + lane * kPerLane;
 #pragma unroll
-    for (int e = 0; e < kPerLane; ++e) qr[h][e] = h < g ? to_float(qrow[e]) : 0.f;
+    for (int e = 0; e < kPerLane; ++e) qr[h][e] = h < g && lane_in ? to_float(qrow[e]) : 0.f;
   }
 
   float m_run[kWarpHeads], l_run[kWarpHeads];
@@ -132,7 +137,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     for (int j = warp; j < block_size; j += kWarps) {
       float kv[kPerLane];
 #pragma unroll
-      for (int e = 0; e < kPerLane; ++e) kv[e] = to_float(k_s[j * D + lane * kPerLane + e]);
+      for (int e = 0; e < kPerLane; ++e)
+        kv[e] = lane_in ? to_float(k_s[j * D + lane * kPerLane + e]) : 0.f;
       const bool valid = i * block_size + j < len;
 #pragma unroll
       for (int h = 0; h < kMaxG; ++h) {
@@ -229,21 +235,24 @@ extern "C" int paged_decode_attention_launch(const void* q, const void* k_pages,
                                              const void* lengths, void* out, int B, int Hkv,
                                              int NB, int BS, int max_blocks, int g, int D,
                                              int dtype, void* stream) {
-  if (B <= 0 || Hkv <= 0 || Hkv > 65535 || g < 1 || g > kMaxG || BS < 8 || BS > kMaxBS ||
-      BS % 8 != 0 || max_blocks < 1)
+  if (B <= 0 || Hkv <= 0 || Hkv > 65535 || g < 1 || g > kMaxG || BS < 1 || BS > kMaxBS ||
+      max_blocks < 1)
     return (int)cudaErrorInvalidValue;
   const int* t = static_cast<const int*>(tables);
   const int* l = static_cast<const int*>(lengths);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return (int)launch<float, 64>(q, k_pages, v_pages, t, l, out, B, Hkv, NB, BS, max_blocks, g, s);
-  if (dtype == 0 && D == 128)
-    return (int)launch<float, 128>(q, k_pages, v_pages, t, l, out, B, Hkv, NB, BS, max_blocks, g, s);
-  if (dtype == 1 && D == 64)
-    return (int)launch<__nv_bfloat16, 64>(q, k_pages, v_pages, t, l, out, B, Hkv, NB, BS,
-                                          max_blocks, g, s);
-  if (dtype == 1 && D == 128)
-    return (int)launch<__nv_bfloat16, 128>(q, k_pages, v_pages, t, l, out, B, Hkv, NB, BS,
-                                           max_blocks, g, s);
+#define PAGED_DISPATCH(T, DIM)                                                           \
+  if (D == DIM)                                                                          \
+    return (int)launch<T, DIM>(q, k_pages, v_pages, t, l, out, B, Hkv, NB, BS, max_blocks, \
+                               g, s);
+  if (dtype == 0) {
+    PAGED_DISPATCH(float, 16) PAGED_DISPATCH(float, 32)
+    PAGED_DISPATCH(float, 64) PAGED_DISPATCH(float, 128)
+  }
+  if (dtype == 1) {
+    PAGED_DISPATCH(__nv_bfloat16, 16) PAGED_DISPATCH(__nv_bfloat16, 32)
+    PAGED_DISPATCH(__nv_bfloat16, 64) PAGED_DISPATCH(__nv_bfloat16, 128)
+  }
+#undef PAGED_DISPATCH
   return (int)cudaErrorInvalidValue;
 }

@@ -20,7 +20,14 @@ Layouts follow the model: q ``[B, S, Hq, D]``, k/v ``[B, S, Hkv, D]`` with
 Hq a multiple of Hkv (GQA: query head h reads kv head h // (Hq // Hkv)),
 lse and delta ``[B, Hq, S]`` float32. The kernels read q/k/v/dO through
 their strides, so the model's tensors go in without a copy, and mask the
-ragged sequence edge themselves: no KV repeat and no padding.
+ragged sequence edge themselves: no KV repeat and no sequence padding.
+
+The kernels are built for head dims 64 and 128. Any other multiple of 8 up
+to 128 is zero-padded to the next of the two (``pad_head_dim``, one copy of
+each input) and the outputs are sliced back: zero columns leave Q K^T
+unchanged and give zero columns of O, dQ, dK and dV, so the result is exact
+as long as the scale stays 1/sqrt of the caller's head dim, which the
+launchers are given.
 
 Each of ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` runs its
 kernel on CUDA tensors and raises on anything the kernel cannot take; CPU
@@ -37,6 +44,7 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ray_tpu_torch.ops import _build
 
@@ -47,7 +55,7 @@ bwd_dq_launches = 0   # ... by flash_bwd_dq
 bwd_dkv_launches = 0  # ... by flash_bwd_dkv
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_KERNEL_HEAD_DIMS = (64, 128)  # what the kernels are built for; others are padded
 
 
 # ---------------------------------------------------------------- plain versions
@@ -57,18 +65,21 @@ def _grouped(x, hkv):
     return x.float().reshape(B, S, hkv, Hq // hkv, D)
 
 
-def _scores(q, k, causal):
+def _scale(q, scale):
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+
+
+def _scores(q, k, causal, scale=None):
     """Scaled float32 scores [B, Hkv, g, S, S], causal mask applied."""
-    D = q.shape[-1]
     s = torch.einsum("bqhgd,bkhd->bhgqk", _grouped(q, k.shape[2]), k.float())
-    s = s * (1.0 / math.sqrt(D))
+    s = s * _scale(q, scale)
     if causal:
         i = torch.arange(q.shape[1], device=q.device)
         s = torch.where(i[:, None] >= i[None, :], s, NEG_INF)
     return s
 
 
-def _recompute_p(q, k, lse, causal):
+def _recompute_p(q, k, lse, causal, scale=None):
     """P = exp(S - lse) with the causal mask and dead rows zeroed: one
     definition for dQ and dK/dV, as ``_recompute_p`` (``:87``) is for the
     TPU kernels."""
@@ -76,7 +87,7 @@ def _recompute_p(q, k, lse, causal):
     Hkv = k.shape[2]
     lse = lse.reshape(B, Hkv, Hq // Hkv, S)[..., None]
     alive = (lse > NEG_INF / 2).float()
-    return torch.exp(_scores(q, k, causal) - lse * alive) * alive
+    return torch.exp(_scores(q, k, causal, scale) - lse * alive) * alive
 
 
 def _ungroup(x, like):
@@ -85,11 +96,11 @@ def _ungroup(x, like):
     return x.permute(0, 3, 1, 2, 4).reshape(B, S, Hkv * g, D).to(like.dtype)
 
 
-def flash_fwd_ref(q, k, v, causal):
+def flash_fwd_ref(q, k, v, causal, scale=None):
     """Plain version of the forward kernel: (o [B,S,Hq,D] in q's dtype,
-    lse [B,Hq,S] float32)."""
+    lse [B,Hq,S] float32). ``scale`` defaults to 1/sqrt(D)."""
     B, S, Hq, _ = q.shape
-    s = _scores(q, k, causal)
+    s = _scores(q, k, causal, scale)
     m = s.amax(dim=-1, keepdim=True)
     alive = (m > NEG_INF / 2).float()
     p = torch.exp(s - m * alive) * alive
@@ -99,26 +110,26 @@ def flash_fwd_ref(q, k, v, causal):
     return _ungroup(o, q), lse.reshape(B, Hq, S)
 
 
-def _ds(q, k, v, do, lse, delta, causal):
+def _ds(q, k, v, do, lse, delta, causal, scale):
     """(P, dS), both [B, Hkv, g, S, S] float32."""
-    B, S, Hq, D = q.shape
+    B, S, Hq, _ = q.shape
     Hkv = k.shape[2]
-    p = _recompute_p(q, k, lse, causal)
+    p = _recompute_p(q, k, lse, causal, scale)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", _grouped(do, Hkv), v.float())
     delta = delta.reshape(B, Hkv, Hq // Hkv, S)[..., None]
-    return p, p * (dp - delta) * (1.0 / math.sqrt(D))
+    return p, p * (dp - delta) * _scale(q, scale)
 
 
-def flash_bwd_dq_ref(q, k, v, do, lse, delta, causal):
+def flash_bwd_dq_ref(q, k, v, do, lse, delta, causal, scale=None):
     """Plain version of the dQ kernel: dq [B,S,Hq,D] in q's dtype."""
-    _, ds = _ds(q, k, v, do, lse, delta, causal)
+    _, ds = _ds(q, k, v, do, lse, delta, causal, scale)
     return _ungroup(ds @ k.float().permute(0, 2, 1, 3)[:, :, None], q)
 
 
-def flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal):
+def flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal, scale=None):
     """Plain version of the dK/dV kernel: (dk, dv) [B,S,Hkv,D], summed over
     each kv head's query group, in k's and v's dtypes."""
-    p, ds = _ds(q, k, v, do, lse, delta, causal)
+    p, ds = _ds(q, k, v, do, lse, delta, causal, scale)
     Hkv = k.shape[2]
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, _grouped(do, Hkv))
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, _grouped(q, Hkv))
@@ -145,13 +156,26 @@ def _check(name, q, k, v, *same_as_q):
     for t in same_as_q:
         if t.shape != q.shape:
             raise ValueError(f"{name}: dO {tuple(t.shape)} does not match q {tuple(q.shape)}")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {D} not in {_HEAD_DIMS}")
+    if not 0 < D <= _KERNEL_HEAD_DIMS[-1] or D % 8:
+        raise ValueError(f"{name}: head dim {D} must be a multiple of 8 up to "
+                         f"{_KERNEL_HEAD_DIMS[-1]}")
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"{name}: Hq {Hq} is not a multiple of Hkv {Hkv}")
     if Hq > 65535 or B > 65535:
         raise ValueError(f"{name}: batch {B} and heads {Hq} must be at most 65535")
     return B, S, Hq, Hkv, D
+
+
+def kernel_head_dim(D):
+    """The head dim the kernels run for a caller's D: the next of 64, 128."""
+    return next(d for d in _KERNEL_HEAD_DIMS if d >= D)
+
+
+def pad_head_dim(x, D):
+    """``x`` zero-padded along its last dim to ``D``; ``x`` itself when it
+    has that size already. Used with the caller's scale, the padded call
+    sliced back to the caller's head dim is exact (see the module doc)."""
+    return x if x.shape[-1] == D else F.pad(x, (0, D - x.shape[-1]))
 
 
 def _rowstats(name, t, B, Hq, S, device):
@@ -196,15 +220,15 @@ def flash_fwd(q, k, v, causal):
     if not q.is_cuda:
         return flash_fwd_ref(q, k, v, causal)
     B, S, Hq, Hkv, D = _check("flash_fwd", q, k, v)
-    q, k, v = _strided(q), _strided(k), _strided(v)
-    o = torch.empty(B, S, Hq, D, dtype=q.dtype, device=q.device)
+    Dk = kernel_head_dim(D)
+    q, k, v = (_strided(pad_head_dim(x, Dk)) for x in (q, k, v))
+    o = torch.empty(B, S, Hq, Dk, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, Hq, S, dtype=torch.float32, device=q.device)
-    if o.numel() == 0:
-        return o, lse
-    _launch("flash_fwd_launch", [q, k, v, o, lse], [q, k, v, o],
-            [B, S, Hkv, Hq // Hkv, D, int(causal), _DTYPES[q.dtype]])
-    fwd_launches += 1
-    return o, lse
+    if o.numel():
+        _launch("flash_fwd_launch", [q, k, v, o, lse], [q, k, v, o],
+                [B, S, Hkv, Hq // Hkv, Dk, int(causal), _DTYPES[q.dtype], D])
+        fwd_launches += 1
+    return o[..., :D], lse
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal):
@@ -215,14 +239,14 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal):
     B, S, Hq, Hkv, D = _check("flash_bwd_dq", q, k, v, do)
     lse = _rowstats("flash_bwd_dq", lse, B, Hq, S, q.device)
     delta = _rowstats("flash_bwd_dq", delta, B, Hq, S, q.device)
-    q, k, v, do = _strided(q), _strided(k), _strided(v), _strided(do)
-    dq = torch.empty(B, S, Hq, D, dtype=q.dtype, device=q.device)
-    if dq.numel() == 0:
-        return dq
-    _launch("flash_bwd_dq_launch", [q, k, v, do, lse, delta, dq], [q, k, v, do, dq],
-            [B, S, Hkv, Hq // Hkv, D, int(causal), _DTYPES[q.dtype]])
-    bwd_dq_launches += 1
-    return dq
+    Dk = kernel_head_dim(D)
+    q, k, v, do = (_strided(pad_head_dim(x, Dk)) for x in (q, k, v, do))
+    dq = torch.empty(B, S, Hq, Dk, dtype=q.dtype, device=q.device)
+    if dq.numel():
+        _launch("flash_bwd_dq_launch", [q, k, v, do, lse, delta, dq], [q, k, v, do, dq],
+                [B, S, Hkv, Hq // Hkv, Dk, int(causal), _DTYPES[q.dtype], D])
+        bwd_dq_launches += 1
+    return dq[..., :D]
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal):
@@ -233,15 +257,16 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal):
     B, S, Hq, Hkv, D = _check("flash_bwd_dkv", q, k, v, do)
     lse = _rowstats("flash_bwd_dkv", lse, B, Hq, S, q.device)
     delta = _rowstats("flash_bwd_dkv", delta, B, Hq, S, q.device)
-    q, k, v, do = _strided(q), _strided(k), _strided(v), _strided(do)
-    dk = torch.empty(B, S, Hkv, D, dtype=k.dtype, device=k.device)
-    dv = torch.empty(B, S, Hkv, D, dtype=v.dtype, device=v.device)
-    if dk.numel() == 0:
-        return dk, dv
-    _launch("flash_bwd_dkv_launch", [q, k, v, do, lse, delta, dk, dv],
-            [q, k, v, do, dk, dv], [B, S, Hkv, Hq // Hkv, D, int(causal), _DTYPES[q.dtype]])
-    bwd_dkv_launches += 1
-    return dk, dv
+    Dk = kernel_head_dim(D)
+    q, k, v, do = (_strided(pad_head_dim(x, Dk)) for x in (q, k, v, do))
+    dk = torch.empty(B, S, Hkv, Dk, dtype=k.dtype, device=k.device)
+    dv = torch.empty(B, S, Hkv, Dk, dtype=v.dtype, device=v.device)
+    if dk.numel():
+        _launch("flash_bwd_dkv_launch", [q, k, v, do, lse, delta, dk, dv],
+                [q, k, v, do, dk, dv],
+                [B, S, Hkv, Hq // Hkv, Dk, int(causal), _DTYPES[q.dtype], D])
+        bwd_dkv_launches += 1
+    return dk[..., :D], dv[..., :D]
 
 
 # ---------------------------------------------------------------- autograd

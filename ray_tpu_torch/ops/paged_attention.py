@@ -15,6 +15,9 @@ online softmax kept on chip, is described in the source.
 ``paged_decode_attention`` runs the kernel on CUDA tensors and raises on
 anything it cannot take; CPU tensors go to ``paged_decode_attention_ref``,
 the same computation in plain PyTorch. ``launches`` counts kernel launches.
+The kernel takes head dims 16, 32, 64 and 128, up to 8 query heads per kv
+head and pages of 1 to 64 tokens; ``check_shape`` raises on the rest, so an
+engine can refuse a model up front with the kernel's own message.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ NEG_INF = -1e30
 launches = 0  # kernel launches by paged_decode_attention, for path checks
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GROUP = 8
 _MAX_BLOCK_SIZE = 64
 
@@ -60,6 +63,19 @@ def paged_decode_attention_ref(q, k_pages, v_pages, tables, lengths):
     return out.reshape(B, Hq, D).to(q.dtype)
 
 
+def check_shape(Hq, Hkv, D, block_size):
+    """Raise ValueError unless the kernel takes this head dim, group
+    (Hq // Hkv) and page size."""
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"paged_decode_attention: head dim {D} not in {_HEAD_DIMS}")
+    if Hkv < 1 or Hq % Hkv or not 1 <= Hq // Hkv <= _MAX_GROUP:
+        raise ValueError(f"paged_decode_attention: Hq {Hq} must be 1..{_MAX_GROUP} "
+                         f"times Hkv {Hkv}")
+    if not 1 <= block_size <= _MAX_BLOCK_SIZE:
+        raise ValueError(f"paged_decode_attention: block size {block_size} must be in "
+                         f"1..{_MAX_BLOCK_SIZE}")
+
+
 def _check(q, k_pages, v_pages, tables, lengths):
     B, Hq, D = q.shape
     Hkv, _, BS, Dk = k_pages.shape
@@ -82,14 +98,7 @@ def _check(q, k_pages, v_pages, tables, lengths):
     if v_pages.shape != k_pages.shape or Dk != D:
         raise ValueError(f"paged_decode_attention: pages {tuple(k_pages.shape)} / "
                          f"{tuple(v_pages.shape)} do not match q {tuple(q.shape)}")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"paged_decode_attention: head dim {D} not in {_HEAD_DIMS}")
-    if Hq % Hkv or not 1 <= Hq // Hkv <= _MAX_GROUP:
-        raise ValueError(f"paged_decode_attention: Hq {Hq} must be 1..{_MAX_GROUP} "
-                         f"times Hkv {Hkv}")
-    if BS % 8 or not 8 <= BS <= _MAX_BLOCK_SIZE:
-        raise ValueError(f"paged_decode_attention: block size {BS} must be a multiple "
-                         f"of 8 in 8..{_MAX_BLOCK_SIZE}")
+    check_shape(Hq, Hkv, D, BS)
     if tables.dim() != 2 or tables.shape[0] != B or lengths.shape != (B,):
         raise ValueError(f"paged_decode_attention: tables {tuple(tables.shape)} and "
                          f"lengths {tuple(lengths.shape)} do not match batch {B}")

@@ -6,7 +6,8 @@ finish and fail paths are inherited) over a block-pool KV cache:
 Memory scales with the tokens a request reserves, and full prompt blocks
 are content-addressed, so a shared prefix is prefilled once and held once.
 On a CUDA device every decode step runs the hand-written paged-attention
-kernel in each layer.
+kernel in each layer, so the constructor refuses there a model or page size
+the kernel cannot take, with the kernel's own message, before any request.
 
 Admission reserves ceil((prompt + max_new) / block) pages up front, so a
 decode never preempts mid-sequence.
@@ -22,7 +23,9 @@ import queue
 import time
 import numpy as np
 
+from ray_tpu_torch import resolve_device
 from ray_tpu_torch.models import llama
+from ray_tpu_torch.ops import paged_attention
 from ray_tpu_torch.serve.llm import LLMConfig, LLMEngine, _Slot
 from ray_tpu_torch.serve.paged_kv import BlockPool, NoFreeBlocks
 
@@ -39,7 +42,12 @@ class PagedLLMEngine(LLMEngine):
     def __init__(self, config: PagedLLMConfig | None = None, params=None, seed: int = 0,
                  external_step: bool = False, device=None):
         self.decode_steps = 0  # batched decode steps run (each one forward_paged)
-        super().__init__(config or PagedLLMConfig(), params=params, seed=seed,
+        config = config or PagedLLMConfig()
+        if resolve_device(device).type == "cuda":  # before any weight is made
+            cfg = config.model_config
+            paged_attention.check_shape(cfg.num_heads, cfg.num_kv_heads, cfg.hd,
+                                        config.block_size)
+        super().__init__(config, params=params, seed=seed,
                          external_step=external_step, device=device)
 
     def _init_backend(self) -> None:

@@ -3,12 +3,15 @@ checkout's ``ray_tpu_torch/csrc/flash_attention.cu`` against other sources
 of the same file (for example a parent commit's), in one process on one card.
 
     git show <commit>:ray_tpu_torch/csrc/flash_attention.cu > build/flash_parent.cu
-    python3 scripts/torch_flash_ab.py build/flash_parent.cu [--loss]
+    python3 scripts/torch_flash_ab.py build/flash_parent.cu [--loss] [--steps]
 
 Each other source is built by nvcc with the port's flags into a library
-beside it and swapped in for this checkout's behind the same wrappers (the
-C interface is the same). Prints JSON lines:
+beside it and swapped in for this checkout's behind the same wrappers. A
+source whose launchers predate their trailing head-dim argument (the head
+dim the scale is taken from) is called without it: the calls here are at
+head dims 64 and 128, where that argument equals D. Prints JSON lines:
 
+- each source's flash kernels: registers and spill bytes from ptxas;
 - the bf16 forward at the trainer's shapes (B 4, S 2048, Hq 32, Hkv 8,
   D 64; causal and not) for each source in turns (A, B, ..., B, A), CUDA
   events with the L2 flushed before each launch, beside SDPA;
@@ -18,17 +21,24 @@ C interface is the same). Prints JSON lines:
   in one call);
 - with ``--loss``: Llama-3.2-1B (bf16, remat "full", random weights from
   seed 0) on chip_smoke's batch, at its initial parameters and after 5
-  train steps taken through each source's kernels: the loss through each
-  source's kernels, dense attention and the plain float32 attention
-  (``flash_fwd_ref``), and their relative gaps.
+  train steps taken through each source's kernels: the loss and the wq, wk
+  and wv gradients through each source's kernels, dense attention and the
+  plain float32 attention (``chip_smoke.plain_f32_attention``), and their
+  relative gaps (chip_smoke's ``attention_gaps``);
+- with ``--steps``: the Llama-3.2-1B train step on chip_smoke's batch
+  through each source in turns (A, B, ..., B, A), 6 steps a turn from one
+  shared state, host clock around each synchronised step; the median of
+  each source's steps, the first step of every turn left out.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -45,13 +55,45 @@ TRAINER_SHAPE = (4, 2048, 32, 8, 64)  # B, S, Hq, Hkv, D
 D128_SHAPE = (1, 2048, 8, 2, 128)
 
 
-def build(sources: list[str]) -> dict[str, ctypes.CDLL]:
+class _WithoutScaleDim:
+    """A launcher of a source from before the trailing head-dim argument,
+    called with this checkout's arguments less that int."""
+
+    def __init__(self, fn):
+        self.fn, self.argtypes, self.restype = fn, None, None
+
+    def __call__(self, *args):
+        if self.fn.argtypes is None:
+            self.fn.restype = self.restype
+            self.fn.argtypes = self.argtypes[:-2] + self.argtypes[-1:]
+        return self.fn(*args[:-2], args[-1])
+
+
+class _OldLauncherLib:
+    def __init__(self, lib: ctypes.CDLL):
+        self.lib, self.launchers = lib, {}
+
+    def __getattr__(self, name):
+        if not name.endswith("_launch"):
+            return getattr(self.lib, name)
+        return self.launchers.setdefault(name, _WithoutScaleDim(getattr(self.lib, name)))
+
+
+def build(card: str, sources: list[str]) -> dict:
+    report = _build.build_all(["flash_attention"])["flash_attention"]
     libs = {"this checkout": _build.load("flash_attention")}
+    ptxas = {"this checkout": report["ptxas"]}
     for src in sources:
-        out = str(Path(src).with_suffix(".so"))
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, src], check=True,
-                       capture_output=True, text=True)
-        libs[src] = ctypes.CDLL(out)
+        out = str(Path(src).resolve().with_suffix(".so"))  # a path, not a library name
+        done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, src],
+                              check=True, capture_output=True, text=True)
+        ptxas[src] = done.stdout + done.stderr
+        lib = ctypes.CDLL(out)
+        libs[src] = lib if b"scale_dim" in Path(src).read_bytes() else _OldLauncherLib(lib)
+    for name, log in ptxas.items():
+        cs.log(card, f"ptxas of {name}: registers and spill bytes",
+               kernels={k: (v.get("registers"), v.get("spill_stores"))
+                        for k, v in cs.ptxas_kernels(log).items() if "bf16" in k})
     return libs
 
 
@@ -109,57 +151,78 @@ def loss_gaps(card: str, libs: dict) -> None:
     cfg = llama.LlamaConfig.llama_1b()
     batch = cs.train_batch(cfg)
 
-    def plain(q, k, v, causal=True):
-        return fa.flash_fwd_ref(q, k, v, causal)[0]
-
-    def losses(params) -> dict:
+    def gaps(params) -> dict:
+        fns = {name: None for name in libs}  # None: the kernels, through auto_attention
+        fns.update({"dense": llama.attention, "plain float32": cs.plain_f32_attention})
         got = {}
-        with torch.no_grad():
-            for name, lib in libs.items():
-                use(lib)
-                got[name] = llama.loss_fn(params, *batch, cfg).item()
-            got["dense"] = llama.loss_fn(params, *batch, cfg, llama.attention).item()
-            got["plain float32"] = llama.loss_fn(params, *batch, cfg, plain).item()
+        for name, fn in fns.items():
+            use(libs.get(name, libs["this checkout"]))
+            got[name] = cs.loss_and_qkv_grads(cfg, params, batch, fn)
         use(libs["this checkout"])
-        gaps = {f"{a} vs {b}": abs(got[a] - got[b]) / abs(got[b])
-                for a in libs for b in ("dense", "plain float32")}
-        gaps["dense vs plain float32"] = (abs(got["dense"] - got["plain float32"])
-                                          / abs(got["plain float32"]))
-        return {"loss": got, "rel_gap": gaps}
+        out = {f"{a} vs {b}": cs.attention_gaps(got[a], got[b])
+               for a in libs for b in ("dense", "plain float32")}
+        out["dense vs plain float32"] = cs.attention_gaps(got["dense"], got["plain float32"])
+        return {"loss": {n: g[0] for n, g in got.items()}, "rel_gap": out}
 
     for i, name in enumerate(libs):
         opt = spmd.make_optimizer(warmup=1)
         state = spmd.init_state(cfg, torch.Generator(device=cs.DEVICE).manual_seed(cs.SEED),
                                 opt, device=cs.DEVICE)
         if i == 0:
-            cs.log(card, "loss gaps at the initial parameters", **losses(state.params))
+            cs.log(card, "loss and gradient gaps at the initial parameters",
+                   **gaps(state.params))
         step = spmd.make_train_step(cfg, opt, device=cs.DEVICE)
         use(libs[name])
         train = []
         for _ in range(5):
             state, m = step(state, *batch)
             train.append(m["loss"].item())
-        cs.log(card, f"loss gaps after 5 steps through {name}", train_losses=train,
-               **losses(state.params))
+        cs.log(card, f"loss and gradient gaps after 5 steps through {name}",
+               train_losses=train, **gaps(state.params))
         del state, step, opt
         torch.cuda.empty_cache()
+
+
+def step_times(card: str, libs: dict, steps: int = 6) -> None:
+    cfg = llama.LlamaConfig.llama_1b()
+    batch = cs.train_batch(cfg)
+    opt = spmd.make_optimizer(warmup=1)
+    state = spmd.init_state(cfg, torch.Generator(device=cs.DEVICE).manual_seed(cs.SEED), opt,
+                            device=cs.DEVICE)
+    step = spmd.make_train_step(cfg, opt, device=cs.DEVICE)
+    times: dict[str, list[float]] = {}
+    for name in list(libs) + list(libs)[::-1]:
+        use(libs[name])
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            state, _ = step(state, *batch)
+            torch.cuda.synchronize()
+            if i:
+                times.setdefault(name, []).append(1e3 * (time.monotonic() - t0))
+    use(libs["this checkout"])
+    cs.log(card, "train step A/B (Llama-3.2-1B, B 4 x S 2048; ms, in turns)",
+           median_ms={n: statistics.median(t) for n, t in times.items()}, step_ms=times)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("sources", nargs="*", help="other flash_attention.cu sources")
     ap.add_argument("--loss", action="store_true", help="also the training-loss gaps")
+    ap.add_argument("--steps", action="store_true", help="also the train step's time")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_flash_ab: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     _, card = cs.device_phase()
-    libs = build(args.sources)
+    libs = build(card, args.sources)
     time_forward(card, libs)
     time_backward(card, libs)
     if args.loss:
         loss_gaps(card, libs)
+    if args.steps:
+        step_times(card, libs)
     return 0
 
 

@@ -20,6 +20,8 @@ exact arithmetic (dQ of the first row when causal). lse, float32 on both
 sides, atol 1e-4 (values up to ~log S + max score).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -56,7 +58,9 @@ def _paged_inputs(device, dtype, B, Hkv, g, D, BS, max_blocks, lengths, seed=0):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("g,D,BS", [(4, 128, 16), (1, 64, 8), (8, 64, 64), (3, 128, 32)])
+@pytest.mark.parametrize("g,D,BS", [(4, 128, 16), (1, 64, 8), (8, 64, 64), (3, 128, 32),
+                                    (2, 16, 4), (8, 16, 16), (4, 32, 5), (1, 32, 64),
+                                    (4, 128, 1), (2, 64, 12)])
 def test_paged_kernel_matches_plain(cuda, dtype, g, D, BS):
     max_blocks = 6
     lengths = [1, BS * max_blocks, 0, BS + 3, 2 * BS - 1]  # ragged, full, dead
@@ -72,8 +76,11 @@ def test_paged_kernel_matches_plain(cuda, dtype, g, D, BS):
 
 @pytest.mark.gpu
 def test_paged_kernel_rejects_what_it_cannot_take(cuda):
-    q, k, v, tables, lengths = _paged_inputs(cuda, torch.float32, 2, 2, 2, 32, 8, 3, [3, 5])
+    q, k, v, tables, lengths = _paged_inputs(cuda, torch.float32, 2, 2, 2, 48, 8, 3, [3, 5])
     with pytest.raises(ValueError, match="head dim"):
+        pa.paged_decode_attention(q, k, v, tables, lengths)
+    q, k, v, tables, lengths = _paged_inputs(cuda, torch.float32, 2, 1, 16, 64, 8, 3, [3, 5])
+    with pytest.raises(ValueError, match="times Hkv"):
         pa.paged_decode_attention(q, k, v, tables, lengths)
     q, k, v, tables, lengths = _paged_inputs(cuda, torch.float32, 2, 2, 2, 64, 8, 3, [3, 5])
     with pytest.raises(TypeError, match="int32"):
@@ -96,6 +103,51 @@ def test_paged_engine_decodes_through_the_kernel(cuda):
         assert steps > 0 and pa.launches - before == cfg.num_layers * steps
     finally:
         eng.shutdown()
+
+
+def _to(params, device):
+    return {n: _to(p, device) if isinstance(p, dict) else p.to(device)
+            for n, p in params.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_size", [4, 16])
+def test_tiny_paged_engine_on_the_card_matches_the_cpu(cuda, block_size):
+    """LlamaConfig.tiny() (head dim 16, group 2, float32) decodes through the
+    paged kernel on the card at every step and gives the CPU engine's greedy
+    tokens from the same weights."""
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompts = [[5, 9, 13, 2, 7], [3, 3, 8], list(range(1, 40))]
+    tokens = {}
+    for device in ("cpu", cuda):
+        eng = PagedLLMEngine(PagedLLMConfig(model_config=cfg, max_batch_size=4,
+                                            max_seq_len=128, block_size=block_size),
+                             params=_to(params, device), device=device)
+        try:
+            before = pa.launches
+            futs = [eng.generate(p, 12) for p in prompts]
+            tokens[str(device)] = [f.result(timeout=300).token_ids for f in futs]
+            steps = eng.stats()["decode_steps"]
+            launches = pa.launches - before
+        finally:
+            eng.shutdown()
+        assert steps > 0
+        assert launches == (cfg.num_layers * steps if device == cuda else 0)
+    assert tokens[str(cuda)] == tokens["cpu"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("change,match", [
+    (dict(hidden_size=192), "head dim"),                  # head dim 48
+    (dict(num_heads=32, num_kv_heads=2, head_dim=16), "times Hkv"),  # group 16
+    (dict(), "block size")])                              # pages of 128 tokens
+def test_paged_engine_refuses_what_the_kernel_cannot_take(cuda, change, match):
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(), **change)
+    block_size = 16 if change else 128
+    with pytest.raises(ValueError, match=match):
+        PagedLLMEngine(PagedLLMConfig(model_config=cfg, max_batch_size=2, max_seq_len=128,
+                                      block_size=block_size), device=cuda)
 
 
 # ---------------------------------------------------------------- flash attention
@@ -158,7 +210,7 @@ def test_flash_kernels_match_plain(cuda, dtype, causal, B, S, Hq, Hkv, D):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 32])
 def test_flash_kernels_read_strided_views(cuda, dtype, causal, D):
     """q, k and v as slices of one fused [B, S, Hq + 2 Hkv, D] projection,
     as a fused QKV matmul gives them: the kernels read them in place through
@@ -211,6 +263,83 @@ def test_flash_dkv_matches_plain_at_tile_edges(cuda, dtype, causal, Hq, Hkv, S, 
     dk_ref, dv_ref = fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal)
     assert_flash_close(dk, dk_ref)
     assert_flash_close(dv, dv_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Hq,Hkv", [(8, 8), (8, 2), (8, 1)])
+@pytest.mark.parametrize("S", [63, 65, 127, 129, 2047])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_dq_matches_plain_at_tile_edges(cuda, dtype, causal, Hq, Hkv, S, D):
+    """dQ with g 1, 4 and 8 against its plain version, at S one under and
+    one over the bf16 kernel's 64-row q tile and 64-key k tile, and one under
+    a long multiple."""
+    q, k, v, do, lse, delta = _dkv_inputs(cuda, dtype, 2, S, Hq, Hkv, D, causal)
+    before = fa.bwd_dq_launches
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert fa.bwd_dq_launches == before + 1
+    assert_flash_close(dq, fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, causal))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_dq_dead_query_rows(cuda, dtype, causal, D):
+    """A query whose lse is NEG_INF (no live key) has P = 0 and a zero dQ
+    row. The kernel agrees with the plain version; it gives exactly what it
+    gives when those rows stay alive with dO and delta zeroed, whose dS is
+    then exactly zero too; and with every query dead, dQ is exactly zero."""
+    B, S, Hq, Hkv = 2, 150, 8, 2
+    q, k, v, do, lse, delta = _dkv_inputs(cuda, dtype, B, S, Hq, Hkv, D, causal)
+    dead = torch.zeros(B, Hq, S, dtype=torch.bool, device=cuda)
+    dead[:, :, ::7] = True
+    dead[0, 3] = True  # a whole query head
+    dead_lse = lse.masked_fill(dead, fa.NEG_INF)
+    dq = fa.flash_bwd_dq(q, k, v, do, dead_lse, delta, causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dq).all()
+    assert_flash_close(dq, fa.flash_bwd_dq_ref(q, k, v, do, dead_lse, delta, causal))
+    rows = dead.transpose(1, 2)[..., None]  # [B, S, Hq, 1]
+    dq0 = fa.flash_bwd_dq(q, k, v, do.masked_fill(rows, 0), lse,
+                          delta.masked_fill(dead, 0.0), causal)
+    torch.cuda.synchronize()
+    assert torch.equal(dq, dq0)
+    dq = fa.flash_bwd_dq(q, k, v, do, torch.full_like(lse, fa.NEG_INF), delta, causal)
+    torch.cuda.synchronize()
+    assert not dq.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [16, 32, 96])
+def test_flash_kernels_take_padded_head_dims(cuda, dtype, causal, D):
+    """Head dims the kernels are not built for run zero-padded to 64 or 128
+    and sliced back, with the caller's scale: each of the three kernels
+    against its plain version at the caller's D, and the forward's output
+    keeps that D."""
+    q, k, v, do = _flash_inputs(cuda, dtype, 2, 129, 8, 2, D)
+    before = (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert o.shape == q.shape
+    assert_flash_close(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0.0)
+    delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
+    torch.cuda.synchronize()
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    assert_flash_close(dq, fa.flash_bwd_dq_ref(q, k, v, do, lse_ref, delta, causal))
+    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(q, k, v, do, lse_ref, delta, causal)
+    assert_flash_close(dk, dk_ref)
+    assert_flash_close(dv, dv_ref)
+    assert (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == tuple(
+        n + 1 for n in before)
 
 
 @pytest.mark.gpu
@@ -270,9 +399,10 @@ def test_flash_backward_through_function(cuda, dtype):
 
 @pytest.mark.gpu
 def test_flash_rejects_what_it_cannot_take(cuda):
-    q, k, v, _ = _flash_inputs(cuda, torch.float32, 1, 16, 2, 2, 32)
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_fwd(q, k, v, True)
+    for D in (136, 20):  # past 128, not a multiple of 8
+        q, k, v, _ = _flash_inputs(cuda, torch.float32, 1, 16, 2, 2, D)
+        with pytest.raises(ValueError, match="head dim"):
+            fa.flash_fwd(q, k, v, True)
     q, k, v, _ = _flash_inputs(cuda, torch.float32, 1, 16, 2, 2, 64)
     with pytest.raises(TypeError, match="must be"):
         fa.flash_fwd(q, k.bfloat16(), v, True)

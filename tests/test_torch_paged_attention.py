@@ -39,6 +39,14 @@ def test_paged_decode_matches_jax_kernel(g):
     np.testing.assert_allclose(got, ref, atol=2e-5)
 
 
+@pytest.mark.parametrize("g", [1, 2, 4])
+def test_paged_decode_matches_jax_kernel_at_block_size_4(g):
+    """Pages of 4 tokens at head dim 16, the shapes LlamaConfig.tiny() and
+    the reference's engine tests serve, which the kernel now takes too."""
+    ref, got = _both(_inputs(g, [3, 4, 13, 32], B=4, D=16, BS=4, max_blocks=8))
+    np.testing.assert_allclose(got, ref, atol=2e-5)
+
+
 def test_dead_row_gives_zeros():
     q, k, v, tables, _ = _inputs(2, [0, 9, 0])
     lengths = np.asarray([0, 9, 0], np.int32)
