@@ -6,20 +6,26 @@
 2. Build: every kernel source under ray_tpu_torch/csrc, one nvcc each, in
    parallel; build seconds, each kernel's registers and spill bytes from
    ptxas, and the bf16 forward's, dQ's and dK/dV's dynamic shared memory.
-   None of the three bf16 kernels may spill at head dim 64.
+   None of the three bf16 kernels may spill at head dim 64, and neither
+   paged kernel (the split pass, at every group it is built for, and the
+   combine) at head dim 128 in bf16.
 3. Kernels: each kernel against its plain PyTorch version at the main
    path's shapes (bf16 and float32), then timed with CUDA events (L2 flushed
    before every launch) beside the plain version, one library call computing
-   the same function, and the least time the card could take (bound).
+   the same function, and the least time the card could take (bound). The
+   paged kernel is also checked at lengths one under, at and one over the
+   edges of its splits, and its time is split between its two launches
+   (split pass, combine) by torch.profiler.
 4. Serving path: a PagedLLMEngine serving Llama-3-8B at full width and
    depth (random weights from a seed) answers 8 concurrent requests; the
    paged kernel's launch counter is zeroed just before and read just after,
    and every decode step of every layer must have gone through the kernel.
    Then one decode step through forward_paged on the gather path and on the
    kernel path, from copies of the same pool, must agree, and a profile of
-   that decode step. Then LlamaConfig.tiny() (head dim 16, float32) served
-   at block size 4 by an engine on the card and one on the CPU from the same
-   weights: every decode step through the kernel, the same greedy tokens.
+   that decode step, naming both paged launches. Then LlamaConfig.tiny()
+   (head dim 16, float32) served at block size 4 by an engine on the card
+   and one on the CPU from the same weights: every decode step through the
+   kernel, the same greedy tokens.
 5. Flash kernels: forward, dQ and dK/dV each against its plain version
    (bf16 and float32; causal and not; GQA 1 and 4 at head dim 64 and 128,
    and at 16 and 96, which the wrappers zero-pad to 64 and 128; ragged S 1,
@@ -131,6 +137,7 @@ TRAIN_F32_REF_TOL = {
 # the tiny serving check: LlamaConfig.tiny() at pages of 4 tokens
 TINY_BLOCK, TINY_NEW_TOKENS = 4, 12
 FLASH_DTYPES = (torch.bfloat16, torch.float32)
+PAGED_KERNELS = ("paged_split_kernel", "paged_combine_kernel")  # the paged pair, in launch order
 FLASH_OUTPUTS = {"flash_fwd": ("o",), "flash_bwd_dq": ("dq",), "flash_bwd_dkv": ("dk", "dv")}
 FLASH_KERNELS = {  # name: (TPU kernel it replaces, tensor-core products per (q, k) pair,
     #                    the CUDA kernel that runs at the trainer's shapes)
@@ -185,7 +192,7 @@ def kernel_name(mangled: str) -> str:
     args = re.match(r"I(.+?)EE", rest)
     if not args:
         return name
-    args = re.sub(r"Li(\d+)", r",\1", args.group(1)).replace("13__nv_bfloat16", "bf16")
+    args = re.sub(r"Li(\d+)E?", r",\1", args.group(1)).replace("13__nv_bfloat16", "bf16")
     return f"{name}<{args.replace('f,', 'float,').lstrip(',')}>"
 
 
@@ -230,6 +237,14 @@ def build_phase(card: str) -> None:
             log(card, f"{kernel}<{D}> resources", **kernels[f"{kernel}<{D}>"],
                 dynamic_smem_bytes=fn(D, fa._DTYPES[torch.bfloat16]))
         assert kernels[f"{kernel}<64>"]["spill_stores"] == 0, kernels
+    # the paged pair at the serving head dim: the split pass at each group it
+    # is built for (Llama-3-8B runs group 4) and the combine
+    paged = {n: r for n, r in kernels.items()
+             if n.startswith(("paged_split_kernel<bf16,128,", "paged_combine_kernel<bf16,128>"))}
+    log(card, "paged kernels resources (bf16, D 128)", kernels=paged,
+        split_tokens={str(d): pa.pages_per_split(BLOCK, 128, d) * BLOCK for d in FLASH_DTYPES},
+        block_size=BLOCK)
+    assert len(paged) == 5 and all(r["spill_stores"] == 0 for r in paged.values()), paged
 
 
 def paged_inputs(dtype, cfg: llama.LlamaConfig, lengths, seed: int):
@@ -279,14 +294,41 @@ def sdpa_call(args):
     return lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask, enable_gqa=True)
 
 
+def split_edge_lengths(dtype, cfg: llama.LlamaConfig) -> list[int]:
+    """One under, at and one over the first two split edges, the last
+    position and a full table, at this dtype's split tile."""
+    T = pa.pages_per_split(BLOCK, cfg.hd, dtype) * BLOCK
+    return [T - 1, T, T + 1, 2 * T - 1, 2 * T, 2 * T + 1, MAX_SEQ - 1, MAX_SEQ]
+
+
+def paged_launch_split(args, calls: int = 20) -> dict:
+    """Device time of the split pass and of the combine per wrapper call,
+    from torch.profiler over `calls` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            pa.paged_decode_attention(*args)
+        torch.cuda.synchronize()
+    dev, _ = device_events(prof)
+    got = {name: device_ms(dev, name)[0] / calls for name in PAGED_KERNELS}
+    if not all(got.values()):
+        return {"split_ms": "not measured", "combine_ms": "not measured",
+                "combine_share": "not measured"}
+    return {"split_ms": got["paged_split_kernel"], "combine_ms": got["paged_combine_kernel"],
+            "combine_share": got["paged_combine_kernel"] / sum(got.values())}
+
+
 def kernel_phase(card: str, cfg: llama.LlamaConfig) -> dict:
     """Check the kernel on a ragged set (length 1, non-multiples of the page,
-    a full table) and on the main path's mid-decode lengths, in bf16 and
-    float32; time it at both, the main path's numbers going to the line."""
+    a full table), on the main path's mid-decode lengths and at the split
+    edges, in bf16 and float32; time it at the first two, the main path's
+    numbers going to the line."""
     main_lengths = [len(p) + NEW_TOKENS // 2 for p in prompts(cfg)]
     errs = {torch.bfloat16: 0.0, torch.float32: 0.0}
     for dtype in errs:
-        for lengths in (KERNEL_LENGTHS, main_lengths):
+        for lengths in (KERNEL_LENGTHS, main_lengths, split_edge_lengths(dtype, cfg)):
             args = paged_inputs(dtype, cfg, lengths, SEED)
             got = pa.paged_decode_attention(*args)
             torch.cuda.synchronize()
@@ -298,6 +340,9 @@ def kernel_phase(card: str, cfg: llama.LlamaConfig) -> dict:
             log(card, "paged_decode_attention check", dtype=str(dtype), lengths=lengths,
                 max_abs_err=err, tol=TOL[dtype])
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEVICE)
+    pages = pa.pages_per_split(BLOCK, cfg.hd, torch.bfloat16)
+    tile = {"pages_per_split": pages, "split_tokens": pages * BLOCK,
+            "n_splits": -(-(MAX_SEQ // BLOCK) // pages)}
     timed = {}
     for label, lengths in (("main path", main_lengths), ("ragged, full table", KERNEL_LENGTHS)):
         args = paged_inputs(torch.bfloat16, cfg, lengths, SEED)
@@ -308,8 +353,11 @@ def kernel_phase(card: str, cfg: llama.LlamaConfig) -> dict:
              "library_ms": time_ms(lib, flush),
              "kernel_ms_repeat": time_ms(lambda: pa.paged_decode_attention(*args), flush)}
         t["bound_ms"], t["bound_by"] = paged_bound(args)
+        t["bound_share"] = t["bound_ms"] / t["kernel_ms"]
+        t.update(paged_launch_split(args))
+        t["live_splits"] = sum(-(-n // tile["split_tokens"]) for n in lengths) * cfg.num_kv_heads
         log(card, f"paged_decode_attention timing ({label})", lengths=lengths, dtype="bf16",
-            library_max_abs_err=lib_err.abs().max().item(), **t,
+            library_max_abs_err=lib_err.abs().max().item(), **t, **tile,
             shapes=dict(B=len(lengths), Hq=cfg.num_heads, Hkv=cfg.num_kv_heads, D=cfg.hd,
                         BS=BLOCK, max_blocks=MAX_SEQ // BLOCK))
         timed[label] = t
@@ -319,10 +367,12 @@ def kernel_phase(card: str, cfg: llama.LlamaConfig) -> dict:
         "source": "ray_tpu_torch/csrc/paged_attention.cu",
         "replaces": "ray_tpu/ops/paged_attention.py:31",
         "tpu_kernel": "ray_tpu/ops/paged_attention.py::_decode_kernel",
+        "kernel": "paged_split_kernel<bf16,128,4> + paged_combine_kernel<bf16,128>",
         "max_abs_err": errs[torch.bfloat16], "max_abs_err_bf16": errs[torch.bfloat16],
         "max_abs_err_f32": errs[torch.float32],
         "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "combine_share": t["combine_share"], **tile,
     }
 
 
@@ -469,6 +519,12 @@ def device_events(prof) -> tuple[list, dict]:
     return dev, marked
 
 
+def device_ms(dev, name: str) -> tuple[float, int]:
+    """Device ms and calls of the profiled kernels whose name holds `name`."""
+    hits = [e for e in dev if name in e.key]
+    return sum(e.self_device_time_total for e in hits) / 1e3, sum(e.count for e in hits)
+
+
 def profile_decode(card: str, step, steps: int = 5) -> None:
     """Where a batch-8 decode step's time goes: host wall per step, device busy
     time per step from torch.profiler, and the kernels that take it."""
@@ -489,10 +545,14 @@ def profile_decode(card: str, step, steps: int = 5) -> None:
     dev, _ = device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3 / steps
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:10]
+    paged = {name: dict(zip(("ms_per_step", "calls_per_step"),
+                            (x / steps for x in device_ms(dev, name))))
+             for name in PAGED_KERNELS}
     log(card, "decode step breakdown (forward_paged, batch 8, kernel path)",
         wall_ms=wall_ms, device_busy_ms=busy_ms if dev else "not measured",
         device_idle_share=1 - busy_ms / wall_ms if dev else "not measured",
         device_launches_per_step=sum(e.count for e in dev) / steps,
+        paged_launches=paged if dev else "not measured",
         top=[{"name": e.key[:70], "ms_per_step": e.self_device_time_total / 1e3 / steps,
               "calls_per_step": e.count / steps} for e in top])
 

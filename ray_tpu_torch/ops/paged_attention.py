@@ -8,13 +8,18 @@ through a pool; a block table maps each sequence block to its page.
 The kernel is ``csrc/paged_attention.cu`` (CUDA C++ for sm_90a, built by
 ``_build``). It is bound by bytes: it must read ``sum(lengths) * Hkv * D *
 2`` K/V elements once and does about ``4 * Hq * D`` flops per cached token,
-far below what the card computes per byte moved. Its design, one CTA per
-(sequence, kv head) looping over that sequence's live pages with the float32
-online softmax kept on chip, is described in the source.
+far below what the card computes per byte moved. Its design is split-K
+flash-decoding, described in the source: each CTA takes one run of
+``pages_per_split`` pages of a sequence for all query heads of a kv head and
+writes a float32 partial (m, l, acc) to a workspace; a second kernel merges
+the live splits of each row. ``paged_decode_attention_split_ref`` is that
+split and merge in plain PyTorch, for the tests.
 
 ``paged_decode_attention`` runs the kernel on CUDA tensors and raises on
 anything it cannot take; CPU tensors go to ``paged_decode_attention_ref``,
-the same computation in plain PyTorch. ``launches`` counts kernel launches.
+the same computation in plain PyTorch. ``launches`` counts wrapper calls
+that launched the kernel pair. It reads nothing back from the card: the
+number of splits comes from the table's width, not from ``lengths``.
 The kernel takes head dims 16, 32, 64 and 128, up to 8 query heads per kv
 head and pages of 1 to 64 tokens; ``check_shape`` raises on the rest, so an
 engine can refuse a model up front with the kernel's own message.
@@ -23,6 +28,7 @@ engine can refuse a model up front with the kernel's own message.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -60,6 +66,47 @@ def paged_decode_attention_ref(q, k_pages, v_pages, tables, lengths):
     p = torch.exp(s - m * alive) * alive
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhgk,bhkd->bhgd", p, v) / torch.clamp(l, min=1e-30)
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
+def paged_decode_attention_split_ref(q, k_pages, v_pages, tables, lengths, pages_per_split):
+    """The kernel's split and merge in plain PyTorch: the keys of each row cut
+    into runs of ``pages_per_split`` pages, each live run's float32 partial
+    (m, l, acc) with the reference's rules, and the merge
+    out = sum_s e^(m_s - m*) acc_s / max(sum_s e^(m_s - m*) l_s, 1e-30) over
+    the live runs, m* = max_s m_s. A run is live when its first page holds a
+    position < lengths[b]; a row with none gives zeros."""
+    B, Hq, D = q.shape
+    Hkv, _, BS, _ = k_pages.shape
+    max_blocks = tables.shape[1]
+    g = Hq // Hkv
+    n_splits = -(-max_blocks // pages_per_split)
+    T = pages_per_split * BS
+    pad = n_splits * pages_per_split - max_blocks  # the last run's missing pages
+    idx = torch.cat([tables.long(), tables.new_zeros(B, pad).long()], dim=1)
+
+    def runs(pages):  # [B, Hkv, n_splits, T, D] in float32
+        x = pages[:, idx].permute(1, 0, 2, 3, 4).float()
+        return x.reshape(B, Hkv, n_splits, T, D)
+
+    k, v = runs(k_pages), runs(v_pages)
+    q4 = q.reshape(B, Hkv, g, D).float()
+    s = torch.einsum("bhgd,bhstd->bhgst", q4, k) * (1.0 / math.sqrt(D))
+    kpos = torch.arange(n_splits * T, device=q.device).reshape(n_splits, T)
+    lens = lengths.long()[:, None, None, None, None]
+    s = torch.where(kpos < torch.clamp(lens, max=max_blocks * BS), s, NEG_INF)
+    m = s.amax(dim=-1)                                    # [B, Hkv, g, n_splits]
+    alive = (m > NEG_INF / 2).float()
+    p = torch.exp(s - (m * alive)[..., None]) * alive[..., None]
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhgst,bhstd->bhgsd", p, v)
+    live = (torch.arange(n_splits, device=q.device) * T)[None, :] < lengths.long()[:, None]
+    live = live[:, None, None, :]                         # [B, 1, 1, n_splits]
+    m = torch.where(live, m, NEG_INF)
+    m_star = m.amax(dim=-1, keepdim=True)
+    row_alive = (m_star > NEG_INF / 2).float()
+    w = torch.exp(m - m_star * row_alive) * row_alive * live.float()
+    out = (w[..., None] * acc).sum(dim=-2) / torch.clamp((w * l).sum(dim=-1), min=1e-30)[..., None]
     return out.reshape(B, Hq, D).to(q.dtype)
 
 
@@ -104,6 +151,25 @@ def _check(q, k_pages, v_pages, tables, lengths):
                          f"lengths {tuple(lengths.shape)} do not match batch {B}")
 
 
+@functools.lru_cache(maxsize=None)
+def _split_pages(lib, block_size, head_dim, dtype) -> int:
+    """The library's split tile in pages (a compile-time constant per block
+    size, head dim and dtype)."""
+    fn = lib.paged_decode_split_pages
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * 3
+    pages = fn(block_size, head_dim, _DTYPES[dtype])
+    if pages < 1:
+        raise ValueError(f"paged_decode_attention: no split tile for block size "
+                         f"{block_size}, head dim {head_dim}, {dtype}")
+    return pages
+
+
+def pages_per_split(block_size, head_dim, dtype) -> int:
+    """Pages one CTA of the kernel takes at this page size, head dim and
+    dtype (builds the kernel if it is not built)."""
+    return _split_pages(_build.load("paged_attention"), block_size, head_dim, dtype)
+
+
 def paged_decode_attention(q, k_pages, v_pages, tables, lengths):
     """q [B, Hq, D]; k/v_pages [Hkv, NB, BS, D]; tables [B, max_blocks] int32
     (pool block id per sequence block; unused entries must be valid ids,
@@ -118,15 +184,19 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths):
     out = torch.empty_like(q)
     if B == 0:
         return out
-    fn = _build.load("paged_attention").paged_decode_attention_launch
+    lib = _build.load("paged_attention")
+    max_blocks = tables.shape[1]
+    n_splits = -(-max_blocks // _split_pages(lib, BS, D, q.dtype))
+    workspace = torch.empty(B * Hq * n_splits * (D + 2), dtype=torch.float32, device=q.device)
+    fn = lib.paged_decode_attention_launch
     if fn.argtypes is None:  # pointers and the stream as void*, sizes as int
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), tables.data_ptr(),
-                lengths.data_ptr(), out.data_ptr(), B, Hkv, NB, BS, tables.shape[1],
-                Hq // Hkv, D, _DTYPES[q.dtype], stream)
+                lengths.data_ptr(), out.data_ptr(), workspace.data_ptr(), B, Hkv, NB, BS,
+                max_blocks, n_splits, Hq // Hkv, D, _DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention: kernel launch failed (cudaError {rc})")
     launches += 1

@@ -1,9 +1,13 @@
-"""A/B of the port's flash-attention kernels on one NVIDIA GPU: this
-checkout's ``ray_tpu_torch/csrc/flash_attention.cu`` against other sources
-of the same file (for example a parent commit's), in one process on one card.
+"""A/B of the port's attention kernels on one NVIDIA GPU: this checkout's
+``ray_tpu_torch/csrc/flash_attention.cu`` (or, with ``--paged``, its
+``paged_attention.cu``) against other sources of the same file (for example
+a parent commit's, or edited copies for a tile sweep), in one process on one
+card.
 
     git show <commit>:ray_tpu_torch/csrc/flash_attention.cu > build/flash_parent.cu
     python3 scripts/torch_flash_ab.py build/flash_parent.cu [--loss] [--steps]
+    git show <commit>:ray_tpu_torch/csrc/paged_attention.cu > build/paged_parent.cu
+    python3 scripts/torch_flash_ab.py --paged build/paged_parent.cu [more sources]
 
 Each other source is built by nvcc with the port's flags into a library
 beside it and swapped in for this checkout's behind the same wrappers. A
@@ -29,6 +33,15 @@ head dims 64 and 128, where that argument equals D. Prints JSON lines:
   through each source in turns (A, B, ..., B, A), 6 steps a turn from one
   shared state, host clock around each synchronised step; the median of
   each source's steps, the first step of every turn left out.
+- with ``--paged``: each paged source's kernels (registers and spill
+  bytes), its output against the plain version, and the bf16 decode call
+  at Llama-3-8B's serving shapes (B 8, Hq 32, Hkv 8, D 128, pages of 16
+  tokens, a 128-page table) at chip_smoke's main-path lengths and at its
+  ``KERNEL_LENGTHS``, and with every row empty (what a call costs with no
+  key to read), in turns (A, B, ..., B, A), L2 flushed before each launch,
+  beside SDPA over pre-gathered KV and the byte bound. A source
+  from before split-K (no workspace, no split count) is called without
+  those two arguments, as one split.
 """
 
 from __future__ import annotations
@@ -49,6 +62,7 @@ import chip_smoke as cs  # noqa: E402
 from ray_tpu_torch.models import llama  # noqa: E402
 from ray_tpu_torch.ops import _build  # noqa: E402
 from ray_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from ray_tpu_torch.ops import paged_attention as pa  # noqa: E402
 from ray_tpu_torch.train import spmd  # noqa: E402
 
 TRAINER_SHAPE = (4, 2048, 32, 8, 64)  # B, S, Hq, Hkv, D
@@ -79,21 +93,59 @@ class _OldLauncherLib:
         return self.launchers.setdefault(name, _WithoutScaleDim(getattr(self.lib, name)))
 
 
-def build(card: str, sources: list[str]) -> dict:
-    report = _build.build_all(["flash_attention"])["flash_attention"]
-    libs = {"this checkout": _build.load("flash_attention")}
+class _WithoutSplits:
+    """The paged launcher of a source from before split-K, called with this
+    checkout's arguments less the workspace pointer and the split count."""
+
+    def __init__(self, fn):
+        self.fn, self.argtypes, self.restype = fn, None, None
+
+    def __call__(self, *args):
+        if self.fn.argtypes is None:
+            self.fn.restype = self.restype
+            self.fn.argtypes = self.argtypes[:6] + self.argtypes[7:12] + self.argtypes[13:]
+        return self.fn(*args[:6], *args[7:12], *args[13:])
+
+
+class _OneSplit:
+    """paged_decode_split_pages for such a source: the whole table is one split."""
+
+    argtypes = restype = None
+
+    def __call__(self, block_size, head_dim, dtype):
+        return 1 << 30
+
+
+class _OldPagedLib:
+    def __init__(self, lib: ctypes.CDLL):
+        self.paged_decode_attention_launch = _WithoutSplits(lib.paged_decode_attention_launch)
+        self.paged_decode_split_pages = _OneSplit()
+
+
+def build(card: str, sources: list[str], name: str = "flash_attention") -> dict:
+    """This checkout's library and one built from each other source, keyed by
+    source; each source's registers and spills are logged."""
+    report = _build.build_all([name])[name]
+    libs = {"this checkout": _build.load(name)}
     ptxas = {"this checkout": report["ptxas"]}
-    for src in sources:
-        out = str(Path(src).resolve().with_suffix(".so"))  # a path, not a library name
-        done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, src],
-                              check=True, capture_output=True, text=True)
-        ptxas[src] = done.stdout + done.stderr
-        lib = ctypes.CDLL(out)
-        libs[src] = lib if b"scale_dim" in Path(src).read_bytes() else _OldLauncherLib(lib)
-    for name, log in ptxas.items():
-        cs.log(card, f"ptxas of {name}: registers and spill bytes",
+    outs = {src: str(Path(src).resolve().with_suffix(".so")) for src in sources}  # paths
+    procs = {src: subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, src],
+                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, out in outs.items()}  # one nvcc per source, all at once
+    for src, proc in procs.items():
+        ptxas[src] = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {src}:\n{ptxas[src]}")
+        lib, text = ctypes.CDLL(outs[src]), Path(src).read_bytes()
+        if name == "paged_attention":
+            libs[src] = lib if b"paged_decode_split_pages" in text else _OldPagedLib(lib)
+        else:
+            libs[src] = lib if b"scale_dim" in text else _OldLauncherLib(lib)
+    for src, log in ptxas.items():
+        cs.log(card, f"ptxas of {src}: registers and spill bytes",
                kernels={k: (v.get("registers"), v.get("spill_stores"))
-                        for k, v in cs.ptxas_kernels(log).items() if "bf16" in k})
+                        for k, v in cs.ptxas_kernels(log).items()
+                        if ("bf16" in k if name == "flash_attention" else "128" in k)})
     return libs
 
 
@@ -145,6 +197,35 @@ def time_backward(card: str, libs: dict) -> None:
                shape=dict(zip("B S Hq Hkv D".split(), shape)), kernel_ms=times,
                sdpa_backward_ms=sdpa)
         del q, k, v, do, o, lse, delta, qt, kt, vt, out, dot
+
+
+def time_paged(card: str, libs: dict) -> None:
+    cfg = llama.LlamaConfig.llama_8b()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=cs.DEVICE)
+    main_lengths = [len(p) + cs.NEW_TOKENS // 2 for p in cs.prompts(cfg)]
+    for label, lengths in (("main path", main_lengths), ("ragged, full table", cs.KERNEL_LENGTHS),
+                           ("every row empty: the launch floor", [0] * len(main_lengths))):
+        args = cs.paged_inputs(torch.bfloat16, cfg, lengths, cs.SEED)
+        ref = pa.paged_decode_attention_ref(*args)
+        errs = {}
+        for name, lib in libs.items():
+            _build._libs["paged_attention"] = lib
+            got = pa.paged_decode_attention(*args)
+            torch.cuda.synchronize()
+            errs[name] = (got.float() - ref.float()).abs().max().item()
+            torch.testing.assert_close(got, ref, **cs.TOL[torch.bfloat16])
+        times: dict[str, list[float]] = {}
+        for name in list(libs) + list(libs)[::-1]:
+            _build._libs["paged_attention"] = libs[name]
+            times.setdefault(name, []).append(
+                cs.time_ms(lambda: pa.paged_decode_attention(*args), flush))
+        _build._libs["paged_attention"] = libs["this checkout"]
+        bound_ms, bound_by = cs.paged_bound(args)
+        cs.log(card, f"paged decode A/B (bf16, {label}; ms per call, in turns)",
+               lengths=lengths, kernel_ms=times, max_abs_err=errs,
+               sdpa_ms=cs.time_ms(cs.sdpa_call(args), flush), bound_ms=bound_ms,
+               bound_by=bound_by)
+        del args, ref
 
 
 def loss_gaps(card: str, libs: dict) -> None:
@@ -210,12 +291,19 @@ def main() -> int:
     ap.add_argument("sources", nargs="*", help="other flash_attention.cu sources")
     ap.add_argument("--loss", action="store_true", help="also the training-loss gaps")
     ap.add_argument("--steps", action="store_true", help="also the train step's time")
+    ap.add_argument("--paged", nargs="+", metavar="SRC", default=[],
+                    help="time paged_attention.cu against these sources (flash only if "
+                         "flash sources are given too)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_flash_ab: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     _, card = cs.device_phase()
+    if args.paged:
+        time_paged(card, build(card, args.paged, "paged_attention"))
+        if not (args.sources or args.loss or args.steps):
+            return 0
     libs = build(card, args.sources)
     time_forward(card, libs)
     time_backward(card, libs)

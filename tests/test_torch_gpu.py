@@ -62,8 +62,13 @@ def _paged_inputs(device, dtype, B, Hkv, g, D, BS, max_blocks, lengths, seed=0):
                                     (2, 16, 4), (8, 16, 16), (4, 32, 5), (1, 32, 64),
                                     (4, 128, 1), (2, 64, 12)])
 def test_paged_kernel_matches_plain(cuda, dtype, g, D, BS):
-    max_blocks = 6
-    lengths = [1, BS * max_blocks, 0, BS + 3, 2 * BS - 1]  # ragged, full, dead
+    """Ragged rows, a dead row, a full table of at least 128 pages, and rows
+    one under, at and one over the edges of the first two splits."""
+    T = pa.pages_per_split(BS, D, dtype) * BS  # tokens a split takes
+    max_blocks = max(128, -(-(2 * T + 1) // BS))
+    full = BS * max_blocks
+    lengths = [1, full, 0, BS + 3, 2 * BS - 1]  # ragged, full, dead
+    lengths += [k * T + d for k in (1, 2) for d in (-1, 0, 1)]
     args = _paged_inputs(cuda, dtype, len(lengths), 2, g, D, BS, max_blocks, lengths)
     before = pa.launches
     got = pa.paged_decode_attention(*args)
@@ -72,6 +77,23 @@ def test_paged_kernel_matches_plain(cuda, dtype, g, D, BS):
     ref = pa.paged_decode_attention_ref(*args)
     torch.testing.assert_close(got, ref, **TOL[dtype])
     assert not got[2].any()  # length 0 gives zeros
+
+
+@pytest.mark.gpu
+def test_paged_kernel_needs_no_host_sync(cuda):
+    """The wrapper reads nothing back from the card (the decode step calls it
+    once a layer): under sync debug mode "error" a call must not raise."""
+    lengths = [37, 0, 300, 2048]
+    args = _paged_inputs(cuda, torch.bfloat16, len(lengths), 8, 4, 128, 16, 128, lengths)
+    pa.paged_decode_attention(*args)  # build and load outside the checked call
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = pa.paged_decode_attention(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, pa.paged_decode_attention_ref(*args), **TOL[torch.bfloat16])
 
 
 @pytest.mark.gpu

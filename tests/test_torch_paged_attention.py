@@ -59,3 +59,26 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     before = port.launches
     _both(_inputs(1, [3, 8, 31]))
     assert port.launches == before  # only kernel launches count
+
+
+def _split_inputs(g, BS, pages_per_split, seed=0, max_blocks=6):
+    """Rows at the split edges: length 0 and 1, exactly one split, one past a
+    split edge, one under two splits, and all splits live (a full table)."""
+    T = pages_per_split * BS
+    full = max_blocks * BS
+    lengths = [min(n, full) for n in (0, 1, T, T + 1, 2 * T - 1, full)]
+    return _inputs(g, lengths, seed=seed, B=len(lengths), D=16, BS=BS, max_blocks=max_blocks)
+
+
+@pytest.mark.parametrize("BS", [4, 8])
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("pages_per_split", [1, 2, 3])
+def test_split_ref_matches_jax_kernel(pages_per_split, g, BS):
+    """The kernel's split-K arithmetic (partials per run of pages, merged by
+    the combine rule) against the Pallas kernel in interpret mode."""
+    arrays = _split_inputs(g, BS, pages_per_split)
+    ref = np.asarray(jax_paged(*(jnp.asarray(a) for a in arrays), interpret=True))
+    got = port.paged_decode_attention_split_ref(*(torch.from_numpy(a) for a in arrays),
+                                                pages_per_split).numpy()
+    np.testing.assert_allclose(got, ref, atol=2e-5)
+    assert not got[0].any()  # length 0 gives zeros
