@@ -26,6 +26,16 @@
    (head dim 16, float32) served at block size 4 by an engine on the card
    and one on the CPU from the same weights: every decode step through the
    kernel, the same greedy tokens.
+   Then, on the same Llama-3-8B weights: prefill/decode disaggregation (a
+   prefill engine extracts three prompts' KV pages to the host, a second
+   engine attaches and decodes them through the paged kernel; the handoff's
+   bytes and copy times), and speculative decoding (K 4, the 8 requests)
+   with a random Llama-3.2-1B draft, then draft = target on a 1B target. The
+   paged kernel's launches are counted on each path (the draft's
+   single-token decodes: (K - 1) x 16 layers a verify step), and the tokens
+   must be the plain engine's, or part from them first at a near-tie within
+   twice the kernel-vs-gather logit difference. Then the paged pair at the
+   draft's shape (D 64, group 4) against its plain version, and timed.
 5. Flash kernels: forward, dQ and dK/dV each against its plain version
    (bf16 and float32; causal and not; GQA 1 and 4 at head dim 64 and 128,
    and at 16 and 96, which the wrappers zero-pad to 64 and 128; ragged S 1,
@@ -41,6 +51,13 @@
    and the wq/wk/wv gradients through the kernels against plain float32
    attention at the initial parameters and after the 5 steps; and a profile
    of one train step.
+7. Other model families: MoE at Mixtral-8x7B widths cut to 4 of its 32
+   layers (B 1 x S 2048) and ViT-L/16 whole (batch 64), each loss_fn and its
+   backward in bf16, timed, with the gap to a float32 copy of the same
+   weights; the MoE's share of (token, choice) pairs that capacity drops.
+   Then the tiny float32 configs on the card against the CPU: PD and
+   speculative decoding give the CPU's tokens exactly, MoE and ViT its
+   logits to 2e-4.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {...}}. Exits non-zero, before any result, without a
@@ -50,6 +67,7 @@ CUDA device; any failed check raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import gc
 import json
 import re
@@ -62,11 +80,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ray_tpu_torch.models import llama
+from ray_tpu_torch.models import llama, moe, vit
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.serve.llm_paged import PagedLLMConfig, PagedLLMEngine
+from ray_tpu_torch.serve.spec_decode import SpecDecodeConfig, SpecDecodeLLMEngine
 from ray_tpu_torch.train import spmd
 
 SEED = 0
@@ -136,6 +155,27 @@ TRAIN_F32_REF_TOL = {
 }
 # the tiny serving check: LlamaConfig.tiny() at pages of 4 tokens
 TINY_BLOCK, TINY_NEW_TOKENS = 4, 12
+PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024)
+# PD handoff: the first three of the main path's prompts; speculative
+# decoding: K draft tokens a step, all eight prompts
+PD_REQUESTS, SPEC_K = 3, 4
+# draft = target: a proposal is rejected only where the draft's path (the
+# paged kernel) and the verify's (the gather path, a [B, K+1] window) pick
+# different tokens at a near-tie. A draft whose KV were wrong (a hole left by
+# the bonus token, a page off by one) would propose at random, accepted at
+# about 1 / vocab; the limit sits far above that and below a clean run.
+SPEC_SAME_DRAFT_MIN_ACCEPT = 0.8
+# MoE at Mixtral-8x7B widths, depth cut from 32 to 4 layers (46.7 B
+# parameters, 93 GB in bf16, do not fit one 80 GB card); ViT-L/16 whole
+MOE_LAYERS, MOE_BATCH, MOE_SEQ, VIT_BATCH, MODEL_STEPS = 4, 1, 2048, 64, 3
+# bf16 weights and activations against a float32 copy of the same weights,
+# limits set before the first card run: the loss within 1 % (MoE), the
+# logits within LOGIT_REL_TOL of the largest float32 logit (ViT), the rule
+# decode_agreement_phase holds the kernel path to
+MOE_F32_LOSS_REL_TOL = 1e-2
+# the tiny float32 configs on the card against the CPU: logits atol 2e-4,
+# as tests/test_torch_llama.py holds a two-layer float32 forward
+TINY_LOGIT_ATOL = 2e-4
 FLASH_DTYPES = (torch.bfloat16, torch.float32)
 PAGED_KERNELS = ("paged_split_kernel", "paged_combine_kernel")  # the paged pair, in launch order
 FLASH_OUTPUTS = {"flash_fwd": ("o",), "flash_bwd_dq": ("dq",), "flash_bwd_dkv": ("dk", "dv")}
@@ -385,12 +425,12 @@ def prompts(cfg: llama.LlamaConfig) -> list[list[int]]:
     return out  # 8 prompts, 20..557 tokens; the last two share 256 tokens
 
 
-def main_path_phase(card: str, cfg: llama.LlamaConfig) -> tuple[dict, int]:
+def main_path_phase(card: str, cfg: llama.LlamaConfig) -> tuple[dict, int, dict]:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     eng = PagedLLMEngine(
         PagedLLMConfig(model_config=cfg, max_batch_size=BATCH, max_seq_len=MAX_SEQ,
-                       block_size=BLOCK, prefill_buckets=(32, 64, 128, 256, 512, 1024)),
+                       block_size=BLOCK, prefill_buckets=PREFILL_BUCKETS),
         seed=SEED, device=DEVICE)
     torch.cuda.synchronize()
     t_init = time.monotonic() - t0
@@ -423,12 +463,15 @@ def main_path_phase(card: str, cfg: llama.LlamaConfig) -> tuple[dict, int]:
         decode_step_ms=1e3 * decode_window / max(steps - 1, 1),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         kv_pool_gb=eng.kv_memory_bytes() / 1e9)
-    return eng.params, launches
+    plain = {"tokens": [r.token_ids for r in results],
+             "decode_tokens_per_s": decode_tokens / decode_window}
+    return eng.params, launches, plain
 
 
-def decode_agreement_phase(card: str, cfg: llama.LlamaConfig, params) -> None:
+def decode_agreement_phase(card: str, cfg: llama.LlamaConfig, params) -> float:
     """One decode step through forward_paged from copies of the same pool:
-    the gather path (plain attention) against the kernel path."""
+    the gather path (plain attention) against the kernel path. Returns the
+    largest logit difference, the scale of a near-tie."""
     rng = np.random.default_rng(SEED + 2)
     lens = np.asarray([1, 17, 100, 255, 256, 300, 511, 600], np.int32)
     max_blocks = MAX_SEQ // BLOCK
@@ -469,6 +512,7 @@ def decode_agreement_phase(card: str, cfg: llama.LlamaConfig, params) -> None:
         rel_tol=LOGIT_REL_TOL)
     profile_decode(card, lambda: llama.forward_paged(params, tok, cfg, pool_b, tables,
                                                      lengths, BLOCK))
+    return diff
 
 
 def tree_map(fn, params: dict) -> dict:
@@ -862,6 +906,405 @@ def profile_train_step(card: str, step, state, batch) -> None:
              for e in top])
 
 
+# ---------------------------------------------------------------- PD, speculative decoding
+def near_tie_rule(cfg: llama.LlamaConfig, params, reqs, want, got, tol: float) -> dict:
+    """Each request's tokens must equal the plain engine's, or part from them
+    first at a near-tie: a step where a dense forward of the common prefix
+    puts the two tokens within `tol` (twice the kernel-vs-gather logit
+    difference decode_agreement_phase measured) of each other. Past that
+    step the contexts differ, so the tokens may too."""
+    parted = []
+    for i, (prompt, w, g) in enumerate(zip(reqs, want, got)):
+        assert len(w) == len(g), (len(w), len(g))
+        j = next((j for j, (a, b) in enumerate(zip(w, g)) if a != b), None)
+        if j is None:
+            continue
+        seq = torch.tensor([prompt + w[:j]], dtype=torch.int32, device=DEVICE)
+        with torch.no_grad():
+            logits = llama.forward(params, seq, cfg, llama.attention)[0, -1]
+        parted.append({"request": i, "step": j,
+                       "margin": (logits[w[j]] - logits[g[j]]).abs().item()})
+        del logits
+    over = [p for p in parted if not p["margin"] <= tol]
+    assert not over, (over, tol)
+    return {"requests_same_tokens": len(reqs) - len(parted), "parted_at_near_ties": parted,
+            "near_tie_tol": tol}
+
+
+def copy_ms(fn) -> float:
+    """Host wall of copies that end in a sync, median of 3."""
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.monotonic() - t0))
+    return statistics.median(times)
+
+
+def serve(eng, reqs) -> tuple[list, float, dict]:
+    """All requests at once: the results, the decode tokens/s (tokens after
+    each request's first over the window after the last first token, as the
+    main path counts them) and the engine's stats."""
+    futs = [eng.generate(p, NEW_TOKENS) for p in reqs]
+    results = [f.result(timeout=900) for f in futs]
+    torch.cuda.synchronize()
+    window = max(r.total_s for r in results) - max(r.ttft_s for r in results)
+    return results, sum(r.num_generated - 1 for r in results) / window, eng.stats()
+
+
+def pd_phase(card: str, cfg: llama.LlamaConfig, params, plain: dict, tol: float) -> int:
+    """Prefill/decode disaggregation at the serving config: one engine
+    extracts each prompt's KV pages to the host, a second engine on the same
+    card attaches them and decodes through the paged kernel."""
+    reqs = prompts(cfg)[:PD_REQUESTS]
+    conf = PagedLLMConfig(model_config=cfg, max_batch_size=BATCH, max_seq_len=MAX_SEQ,
+                          block_size=BLOCK, prefill_buckets=PREFILL_BUCKETS)
+    prefiller = PagedLLMEngine(conf, params=params, device=DEVICE)
+    decoder = PagedLLMEngine(conf, params=params, device=DEVICE)
+    try:
+        pa.launches = 0  # count only this path's launches
+        t0 = time.monotonic()
+        handoffs = [prefiller.prefill_extract(p) for p in reqs]
+        t_extract = time.monotonic() - t0
+        futs = [decoder.attach_sequence(h, NEW_TOKENS) for h in handoffs]
+        results = [f.result(timeout=900) for f in futs]
+        torch.cuda.synchronize()
+        launches, steps = pa.launches, decoder.stats()["decode_steps"]
+    finally:
+        prefiller.shutdown()
+        decoder.shutdown()
+    assert steps > 0 and launches == cfg.num_layers * steps, (launches, steps)
+    kv = [t for h in handoffs for t in h["kv"].values()]
+    assert all(t.device.type == "cpu" and t.dtype == cfg.dtype for t in kv)
+    nbytes = sum(t.numel() * t.element_size() for t in kv)
+    on_card = [t.to(DEVICE) for t in kv]
+    h2d = copy_ms(lambda: [t.to(DEVICE) for t in kv])
+    d2h = copy_ms(lambda: [t.cpu() for t in on_card])
+    del on_card, kv, handoffs
+    window = max(r.total_s for r in results) - max(r.ttft_s for r in results)
+    agree = near_tie_rule(cfg, params, reqs, plain["tokens"][:PD_REQUESTS],
+                          [r.token_ids for r in results], tol)
+    log(card, "PD handoff: Llama-3-8B, prefill engine -> host -> decode engine",
+        requests=len(reqs), prompt_tokens=[len(p) for p in reqs], new_tokens=NEW_TOKENS,
+        handoff_bytes=nbytes, prefill_extract_s=t_extract, host_to_device_ms=h2d,
+        device_to_host_ms=d2h, host_to_device_gb_per_s=nbytes / h2d / 1e6,
+        device_to_host_gb_per_s=nbytes / d2h / 1e6, decode_steps=steps,
+        paged_decode_launches=launches,
+        decode_tokens_per_s=sum(r.num_generated - 1 for r in results) / window, **agree)
+    return launches
+
+
+def spec_run(card: str, label: str, cfg: llama.LlamaConfig, params, dcfg: llama.LlamaConfig,
+             draft, plain: dict, tol: float) -> tuple[int, dict]:
+    """Speculative decoding of the main path's prompts at K = SPEC_K: the
+    paged launches (the draft's single-token decodes, (K - 1) x draft layers
+    a step), the greedy tokens against the plain engine's under the
+    near-tie rule, the acceptance and the decode tokens/s."""
+    reqs = prompts(cfg)
+    conf = SpecDecodeConfig(model_config=cfg, draft_model_config=dcfg,
+                            num_speculative_tokens=SPEC_K, max_batch_size=BATCH,
+                            max_seq_len=MAX_SEQ, block_size=BLOCK,
+                            prefill_buckets=PREFILL_BUCKETS)
+    eng = SpecDecodeLLMEngine(conf, params=params, draft_params=draft, device=DEVICE)
+    try:
+        pa.launches = 0  # count only this path's launches
+        results, tps, stats = serve(eng, reqs)
+        launches = pa.launches
+    finally:
+        eng.shutdown()
+    steps = stats["decode_steps"]
+    assert steps > 0 and launches == (SPEC_K - 1) * dcfg.num_layers * steps, (launches, steps)
+    agree = near_tie_rule(cfg, params, reqs, plain["tokens"], [r.token_ids for r in results],
+                          tol)
+    out = {"acceptance": stats["accepted_tokens"] / stats["proposed_tokens"],
+           # over the batch: each verify step scores every active request
+           "tokens_per_verify_step": sum(r.num_generated - 1 for r in results) / steps,
+           "decode_tokens_per_s": tps, "plain_decode_tokens_per_s": plain["decode_tokens_per_s"]}
+    log(card, f"speculative decoding: {label}", K=SPEC_K, requests=len(reqs),
+        new_tokens=NEW_TOKENS, verify_steps=steps, paged_decode_launches=launches,
+        proposed=stats["proposed_tokens"], accepted=stats["accepted_tokens"],
+        speed_vs_plain=tps / plain["decode_tokens_per_s"], **out, **agree)
+    return launches, out
+
+
+def spec_phase(card: str, cfg: llama.LlamaConfig, params, plain: dict, tol: float) -> dict:
+    """Target Llama-3-8B with a random Llama-3.2-1B draft (head dim 64, group
+    4), then draft = target on a 1B target, each against its plain engine.
+    Returns the paged launches of each."""
+    dcfg = llama.LlamaConfig.llama_1b()
+    draft = llama.init(dcfg, torch.Generator(device=DEVICE).manual_seed(7), DEVICE)
+    launches = {}
+    launches["speculative: 8B target, 1B draft"], _ = spec_run(
+        card, "Llama-3-8B target, random Llama-3.2-1B draft", cfg, params, dcfg, draft,
+        plain, tol)
+    eng = PagedLLMEngine(PagedLLMConfig(model_config=dcfg, max_batch_size=BATCH,
+                                        max_seq_len=MAX_SEQ, block_size=BLOCK,
+                                        prefill_buckets=PREFILL_BUCKETS),
+                         params=draft, device=DEVICE)
+    try:
+        results, tps, _ = serve(eng, prompts(cfg))
+    finally:
+        eng.shutdown()
+    plain_1b = {"tokens": [r.token_ids for r in results], "decode_tokens_per_s": tps}
+    launches["speculative: 1B, draft = target"], same = spec_run(
+        card, "Llama-3.2-1B, draft = target", dcfg, draft, dcfg, draft, plain_1b, tol)
+    assert same["acceptance"] >= SPEC_SAME_DRAFT_MIN_ACCEPT, same
+    return launches
+
+
+def draft_kernel_phase(card: str, dcfg: llama.LlamaConfig) -> dict:
+    """The paged pair at the draft's shape (Llama-3.2-1B: D 64, group 4,
+    pages of 16) against its plain version in bf16 and float32, then timed
+    in bf16 at the main path's mid-decode lengths beside its plain version,
+    SDPA over pre-gathered KV and the byte bound."""
+    lengths = [len(p) + NEW_TOKENS // 2 for p in prompts(dcfg)]
+    errs = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for dtype in errs:
+        for lens in (lengths, KERNEL_LENGTHS, split_edge_lengths(dtype, dcfg)):
+            args = paged_inputs(dtype, dcfg, lens, SEED)
+            got = pa.paged_decode_attention(*args)
+            torch.cuda.synchronize()
+            ref = pa.paged_decode_attention_ref(*args)
+            torch.testing.assert_close(got, ref, **TOL[dtype])
+            errs[dtype] = max(errs[dtype], (got.float() - ref.float()).abs().max().item())
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEVICE)
+    args = paged_inputs(torch.bfloat16, dcfg, lengths, SEED)
+    t = {"kernel_ms": time_ms(lambda: pa.paged_decode_attention(*args), flush),
+         "plain_ms": time_ms(lambda: pa.paged_decode_attention_ref(*args), flush),
+         "library_ms": time_ms(sdpa_call(args), flush),
+         "kernel_ms_repeat": time_ms(lambda: pa.paged_decode_attention(*args), flush)}
+    t["bound_ms"], t["bound_by"] = paged_bound(args)
+    t["bound_share"] = t["bound_ms"] / t["kernel_ms"]
+    out = {"kernel": "paged_split_kernel<bf16,64,4> + paged_combine_kernel<bf16,64>",
+           "max_abs_err_bf16": errs[torch.bfloat16], "max_abs_err_f32": errs[torch.float32],
+           "tol": {str(d): TOL[d] for d in errs}, **t,
+           "launches_per_speculative_step": (SPEC_K - 1) * dcfg.num_layers}
+    log(card, "paged_decode_attention at the draft's shape (Llama-3.2-1B)", lengths=lengths,
+        dtype="bf16", shapes=dict(B=len(lengths), Hq=dcfg.num_heads, Hkv=dcfg.num_kv_heads,
+                                  D=dcfg.hd, BS=BLOCK, max_blocks=MAX_SEQ // BLOCK), **out)
+    return out
+
+
+# ---------------------------------------------------------------- MoE, ViT
+def grad_step_ms(loss_fn, leaves) -> tuple[float, float]:
+    """(loss, host ms) of loss_fn() and its backward: the median of
+    MODEL_STEPS runs after one warm-up."""
+    times = []
+    for i in range(MODEL_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        loss = loss_fn()
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        if i:
+            times.append(1e3 * (time.monotonic() - t0))
+        assert all(torch.isfinite(g).all() for g in grads)
+        del grads
+    return loss.item(), statistics.median(times)
+
+
+def profile_grad_step(card: str, label: str, loss_fn, leaves) -> None:
+    """Where one loss + backward's time goes: host wall, device busy time
+    from torch.profiler, the cuBLAS GEMMs' share and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        grads = torch.autograd.grad(loss_fn(), leaves)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.monotonic() - t0)
+    del grads
+    dev, _ = device_events(prof)
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    gemm_ms = sum(e.self_device_time_total for e in dev
+                  if e.key.startswith("nvjet") or "gemm" in e.key) / 1e3
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
+    log(card, f"{label} step breakdown (under the profiler)", wall_ms=wall_ms,
+        device_busy_ms=busy_ms if dev else "not measured",
+        device_idle_share=1 - busy_ms / wall_ms if dev else "not measured",
+        cublas_gemm_ms=gemm_ms if dev else "not measured",
+        gemm_share_of_busy=gemm_ms / busy_ms if dev else "not measured",
+        device_launches=sum(e.count for e in dev),
+        top=[{"name": e.key[:70], "ms": e.self_device_time_total / 1e3, "calls": e.count}
+             for e in top])
+
+
+def moe_phase(card: str) -> None:
+    """Mixtral-8x7B widths at 4 of its 32 layers: loss_fn and its backward
+    at B 1 x S 2048 in bf16, the share of (token, choice) pairs that
+    capacity drops in each layer, and the forward loss against a float32
+    copy of the same weights."""
+    full = moe.MoEConfig.mixtral_8x7b()
+    cfg = dataclasses.replace(full, base=dataclasses.replace(full.base, num_layers=MOE_LAYERS))
+    params = moe.init(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    n_params = sum(t.numel() for t in spmd.leaves(params))
+    rng = np.random.default_rng(SEED + 4)
+    tokens = torch.from_numpy(rng.integers(0, cfg.base.vocab_size, (MOE_BATCH, MOE_SEQ)))
+    tokens = tokens.to(DEVICE)
+    targets = torch.roll(tokens, -1, dims=1)
+    leaves = [t.requires_grad_() for t in spmd.leaves(params)]
+    torch.cuda.reset_peak_memory_stats()
+    loss, step_ms = grad_step_ms(lambda: moe.loss_fn(params, tokens, targets, cfg), leaves)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    profile_grad_step(card, "MoE (Mixtral widths, 4 layers, B 1 x S 2048)",
+                      lambda: moe.loss_fn(params, tokens, targets, cfg), leaves)
+    for t in leaves:
+        t.requires_grad_(False)
+    del leaves
+    route, kept = moe.route, []
+
+    def counting_route(xt, router_w, cfg_, capacity):
+        dispatch, combine, aux = route(xt, router_w, cfg_, capacity)
+        kept.append(dispatch.sum() / (xt.shape[0] * cfg_.top_k))
+        return dispatch, combine, aux
+
+    moe.route = counting_route  # one forward, to read the dispatch of each layer
+    try:
+        with torch.no_grad():
+            logits, aux = moe.forward(params, tokens, cfg)
+    finally:
+        moe.route = route
+    assert torch.isfinite(logits).all() and len(kept) == MOE_LAYERS
+    del logits
+    with torch.no_grad():
+        loss_fwd = moe.loss_fn(params, tokens, targets, cfg).item()
+        cfg32 = dataclasses.replace(cfg, base=dataclasses.replace(cfg.base, dtype=torch.float32))
+        params = tree_map(lambda t: t.float(), params)  # the bf16 copy is dropped here
+        gc.collect()
+        torch.cuda.empty_cache()
+        loss32 = moe.loss_fn(params, tokens, targets, cfg32).item()
+    del params
+    gap = abs(loss_fwd - loss32) / abs(loss32)
+    log(card, "MoE: Mixtral-8x7B widths, 4 of 32 layers, loss_fn + backward (bf16)",
+        layers=MOE_LAYERS, layers_published=full.base.num_layers, batch=MOE_BATCH,
+        seq=MOE_SEQ, experts=cfg.num_experts, top_k=cfg.top_k,
+        capacity=max(1, int(cfg.capacity_factor * cfg.top_k * MOE_BATCH * MOE_SEQ
+                            / cfg.num_experts)),
+        param_count=n_params, loss=loss, aux=aux.item(),
+        dropped_share_per_layer=[1 - k.item() for k in kept], step_ms=step_ms,
+        tokens_per_s=1e3 * MOE_BATCH * MOE_SEQ / step_ms, peak_mem_gb=peak,
+        loss_forward=loss_fwd, loss_f32=loss32, loss_rel_gap_f32=gap,
+        loss_rel_tol=MOE_F32_LOSS_REL_TOL)
+    assert np.isfinite([loss, loss_fwd, loss32, aux.item()]).all()
+    assert gap <= MOE_F32_LOSS_REL_TOL, gap
+
+
+def vit_phase(card: str) -> None:
+    """ViT-L/16 whole (24 layers, hidden 1024, 224 x 224, patch 16): loss_fn
+    and its backward at batch 64 in bf16, then the logits against a float32
+    copy of the same weights."""
+    cfg = vit.ViTConfig.vit_l16()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params = vit.init(cfg, gen, DEVICE)
+    images = torch.rand((VIT_BATCH, cfg.image_size, cfg.image_size, 3), generator=gen,
+                        device=DEVICE)
+    labels = torch.randint(0, cfg.num_classes, (VIT_BATCH,), generator=gen, device=DEVICE)
+    leaves = [t.requires_grad_() for t in spmd.leaves(params)]
+    torch.cuda.reset_peak_memory_stats()
+    loss, step_ms = grad_step_ms(lambda: vit.loss_fn(params, images, labels, cfg), leaves)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    profile_grad_step(card, "ViT-L/16 (batch 64)",
+                      lambda: vit.loss_fn(params, images, labels, cfg), leaves)
+    with torch.no_grad():
+        logits = vit.forward(params, images, cfg)
+        logits32 = vit.forward(tree_map(lambda t: t.float(), params), images,
+                               dataclasses.replace(cfg, dtype=torch.float32))
+    assert torch.isfinite(logits).all() and logits.shape == (VIT_BATCH, cfg.num_classes)
+    diff = (logits - logits32).abs().max().item()
+    rel = diff / logits32.abs().max().item()
+    log(card, "ViT-L/16: loss_fn + backward (bf16)", layers=cfg.num_layers,
+        hidden=cfg.hidden_size, image_size=cfg.image_size, patch=cfg.patch_size,
+        batch=VIT_BATCH, param_count=sum(t.numel() for t in leaves), loss=loss,
+        step_ms=step_ms, images_per_s=1e3 * VIT_BATCH / step_ms, peak_mem_gb=peak,
+        logits_max_abs_gap_f32=diff, logits_rel_gap_f32=rel, rel_tol=LOGIT_REL_TOL)
+    assert np.isfinite(loss) and rel <= LOGIT_REL_TOL, rel
+
+
+def tiny_models_phase(card: str) -> None:
+    """The tiny float32 configs on the card against the CPU, from the same
+    weights: PD and speculative decoding (a random draft, and draft =
+    target) give the CPU's greedy tokens exactly, and the plain engine's;
+    the MoE and ViT forwards give the CPU's logits to TINY_LOGIT_ATOL."""
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    drafts = {"random draft": llama.init(cfg, torch.Generator().manual_seed(SEED + 7), "cpu"),
+              "draft = target": params}
+    mcfg, vcfg = moe.MoEConfig.tiny(), vit.ViTConfig.tiny()
+    mparams = moe.init(mcfg, torch.Generator().manual_seed(SEED), "cpu")
+    vparams = vit.init(vcfg, torch.Generator().manual_seed(SEED), "cpu")
+    rng = np.random.default_rng(SEED + 5)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)))
+    images = torch.from_numpy(rng.random((4, vcfg.image_size, vcfg.image_size, 3), np.float32))
+    reqs = [[5, 9, 13, 2, 7], [3, 3, 8], list(range(1, 40))]
+    conf = dict(max_batch_size=4, max_seq_len=cfg.max_seq_len, block_size=TINY_BLOCK)
+    got = {}
+    for where, device in (("cpu", torch.device("cpu")), ("card", DEVICE)):
+        def to(tree):
+            return tree_map(lambda t: t.to(device), tree)
+
+        plain = PagedLLMEngine(PagedLLMConfig(model_config=cfg, **conf), params=to(params),
+                               device=device)
+        prefiller = PagedLLMEngine(PagedLLMConfig(model_config=cfg, **conf),
+                                   params=to(params), device=device)
+        decoder = PagedLLMEngine(PagedLLMConfig(model_config=cfg, **conf), params=to(params),
+                                 device=device)
+        try:
+            out = {"plain": [plain.generate_sync(r, TINY_NEW_TOKENS).token_ids for r in reqs]}
+            pa.launches = 0
+            handoffs = [prefiller.prefill_extract(r) for r in reqs]
+            futs = [decoder.attach_sequence(h, TINY_NEW_TOKENS) for h in handoffs]
+            out["PD"] = [f.result(timeout=300).token_ids for f in futs]
+            out["PD launches"] = (pa.launches, decoder.stats()["decode_steps"])
+        finally:
+            for eng in (plain, prefiller, decoder):
+                eng.shutdown()
+        for label, draft in drafts.items():
+            eng = SpecDecodeLLMEngine(
+                SpecDecodeConfig(model_config=cfg, draft_model_config=cfg,
+                                 num_speculative_tokens=SPEC_K, **conf),
+                params=to(params), draft_params=to(draft), device=device)
+            try:
+                pa.launches = 0
+                futs = [eng.generate(r, TINY_NEW_TOKENS) for r in reqs]
+                out[label] = [f.result(timeout=300).token_ids for f in futs]
+                stats = eng.stats()
+                out[f"{label} launches"] = (pa.launches, stats["decode_steps"])
+                out[f"{label} acceptance"] = stats["accepted_tokens"] / stats["proposed_tokens"]
+            finally:
+                eng.shutdown()
+        with torch.no_grad():
+            logits, aux = moe.forward(to(mparams), tokens.to(device), mcfg)
+            out["moe"] = (logits.cpu(), aux.cpu())
+            out["vit"] = vit.forward(to(vparams), images.to(device), vcfg).cpu()
+        got[where] = out
+    cpu, card_ = got["cpu"], got["card"]
+    moe_err = (card_["moe"][0] - cpu["moe"][0]).abs().max().item()
+    vit_err = (card_["vit"] - cpu["vit"]).abs().max().item()
+    labels = ["PD", *drafts]
+    log(card, "tiny float32 configs, card vs CPU: PD, speculative decoding, MoE, ViT",
+        same_tokens={k: card_[k] == cpu[k] for k in ["plain", *labels]},
+        same_as_plain={k: card_[k] == card_["plain"] for k in labels},
+        launches_and_steps={k: {"cpu": cpu[f"{k} launches"], "card": card_[f"{k} launches"]}
+                            for k in labels},
+        acceptance={k: card_[f"{k} acceptance"] for k in drafts},
+        moe_logits_max_abs_err=moe_err, moe_aux_card=card_["moe"][1].item(),
+        moe_aux_cpu=cpu["moe"][1].item(), vit_logits_max_abs_err=vit_err,
+        atol=TINY_LOGIT_ATOL)
+    for k in ["plain", *labels]:
+        assert card_[k] == cpu[k] and (k == "plain" or card_[k] == card_["plain"]), k
+    per_step = {"PD": cfg.num_layers, **{k: (SPEC_K - 1) * cfg.num_layers for k in drafts}}
+    for k, n in per_step.items():
+        launches, steps = card_[f"{k} launches"]
+        assert steps > 0 and launches == n * steps and cpu[f"{k} launches"][0] == 0, k
+    # float32 with the same weights on both sides: no near-ties at this size
+    assert cpu["draft = target acceptance"] == card_["draft = target acceptance"] == 1.0
+    assert moe_err <= TINY_LOGIT_ATOL and vit_err <= TINY_LOGIT_ATOL, (moe_err, vit_err)
+    torch.testing.assert_close(card_["moe"][1], cpu["moe"][1], rtol=1e-5, atol=0.0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -874,12 +1317,20 @@ def main() -> int:
     build_phase(card)
     cfg = llama.LlamaConfig.llama_8b()
     kernels = [kernel_phase(card, cfg)]
-    params, kernels[0]["launches"] = main_path_phase(card, cfg)
-    decode_agreement_phase(card, cfg, params)
-    del params
+    params, kernels[0]["launches"], plain = main_path_phase(card, cfg)
+    near_tie = 2 * decode_agreement_phase(card, cfg, params)
     tiny_engine_phase(card)
+    # the other serving paths on the main path's weights: PD, speculative
+    # decoding, and the paged pair at the draft's shape
+    paths = {"decode (main path)": kernels[0]["launches"],
+             "PD decode": pd_phase(card, cfg, params, plain, near_tie)}
+    gc.collect()
+    paths.update(spec_phase(card, cfg, params, plain, near_tie))
+    del params
     gc.collect()
     torch.cuda.empty_cache()
+    kernels[0]["launches_by_path"] = paths
+    kernels[0]["draft_shape"] = draft_kernel_phase(card, llama.LlamaConfig.llama_1b())
     t_serve = time.monotonic() - t_start
 
     flash = flash_kernel_phase(card)
@@ -895,7 +1346,19 @@ def main() -> int:
     del initial
     profile_train_step(card, step, state, batch)
     kernels += flash
+    del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_models = time.monotonic()
+    moe_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    vit_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tiny_models_phase(card)
     log(card, "smoke wall", seconds=time.monotonic() - t_start, serving_seconds=t_serve,
+        moe_vit_tiny_seconds=time.monotonic() - t_models,
         param_count_serving=llama.param_count_analytic(cfg),
         param_count_training=llama.param_count_analytic(cfg_train))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,10 +5,17 @@ models and engines in PyTorch, with every Pallas TPU kernel replaced by a
 kernel written by hand for NVIDIA Hopper (``csrc/``). It imports neither
 ``jax`` nor any module of ``ray_tpu``: what it needs from there is copied.
 
-Two paths so far: serving (``serve.llm_paged.PagedLLMEngine`` ->
-``models.llama.forward_paged`` -> the paged decode kernel) and training
-(``train.spmd.make_train_step`` -> ``models.llama.loss_fn`` -> the flash
-attention forward and backward kernels).
+The paths so far:
+- serving: ``serve.llm_paged.PagedLLMEngine`` -> ``models.llama.forward_paged``
+  -> the paged decode kernel; its prefill/decode handoff
+  (``PagedLLMEngine.prefill_extract`` / ``attach_sequence``, the decode half
+  through the same kernel); and speculative decoding
+  (``serve.spec_decode.SpecDecodeLLMEngine``, the draft's decodes through
+  the paged kernel at the draft's shape);
+- training: ``train.spmd.make_train_step`` -> ``models.llama.loss_fn`` ->
+  the flash attention forward and backward kernels;
+- the MoE and ViT families (``models.moe``, ``models.vit``: ``forward`` and
+  ``loss_fn`` on dense attention, as the reference runs them).
 
 Entry points run on the first CUDA device unless the caller passes
 ``device="cpu"`` (the CPU tests do). With no CUDA device and no explicit

@@ -170,6 +170,14 @@ def from_jax(params_np: dict, cfg: LlamaConfig, device=None) -> dict:
     return out
 
 
+def tree_to_torch(params_np: dict, device) -> dict:
+    """A JAX param dict (numpy arrays, with a ``layers`` sub-dict) as
+    tensors on ``device``, each leaf keeping its dtype."""
+    out = {k: _to_torch(v, device) for k, v in params_np.items() if k != "layers"}
+    out["layers"] = {k: _to_torch(v, device) for k, v in params_np["layers"].items()}
+    return out
+
+
 def param_count(params) -> int:
     return sum(t.numel() for t in params["layers"].values()) + sum(
         t.numel() for name, t in params.items() if name != "layers")
@@ -251,8 +259,9 @@ def _cached_attention(q, k_cache, v_cache, lengths, q_positions):
 
 
 # ---------------------------------------------------------------- training
-def attention(q, k, v, causal: bool = True):
-    """Dense GQA attention. q [B,S,Hq,D], k/v [B,S,Hkv,D]."""
+def attention(q, k, v, causal: bool = True, mask=None):
+    """Dense GQA attention. q [B,S,Hq,D], k/v [B,S,Hkv,D]; ``mask`` [B,S] bool
+    keeps the keys where it is True (a masked score takes NEG_INF)."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     qg = q.reshape(B, S, Hkv, Hq // Hkv, D)
@@ -260,6 +269,8 @@ def attention(q, k, v, causal: bool = True):
     if causal:
         i = torch.arange(S, device=q.device)
         scores = torch.where(i[:, None] >= i[None, :], scores, NEG_INF)
+    if mask is not None:
+        scores = torch.where(mask[:, None, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhgqk,bkhd->bqhgd", probs, v).reshape(B, S, Hq, D)
 
@@ -315,15 +326,20 @@ def forward(params, tokens, cfg: LlamaConfig, attn_fn=None, positions=None):
     return _logits(params, x, cfg)
 
 
-def loss_fn(params, tokens, targets, cfg: LlamaConfig, attn_fn=None):
-    """Next-token cross-entropy, mean over targets != -100 (ignored)."""
-    logits = forward(params, tokens, cfg, attn_fn)
+def token_nll(logits, targets):
+    """Cross-entropy of logits [..., V] against targets [...], mean over
+    targets != -100 (ignored)."""
     valid = targets != -100
     tsafe = torch.where(valid, targets, 0).long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, tsafe[..., None])[..., 0]
     nll = (logz - gold) * valid
     return nll.sum() / valid.sum().clamp(min=1)
+
+
+def loss_fn(params, tokens, targets, cfg: LlamaConfig, attn_fn=None):
+    """Next-token cross-entropy, mean over targets != -100 (ignored)."""
+    return token_nll(forward(params, tokens, cfg, attn_fn), targets)
 
 
 def flops_per_token(cfg: LlamaConfig) -> float:

@@ -26,10 +26,11 @@ import numpy as np
 import pytest
 import torch
 
-from ray_tpu_torch.models import llama
+from ray_tpu_torch.models import llama, moe, vit
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.serve.llm_paged import PagedLLMConfig, PagedLLMEngine
+from ray_tpu_torch.serve.spec_decode import SpecDecodeConfig, SpecDecodeLLMEngine
 from ray_tpu_torch.train import spmd
 
 TOL = {torch.float32: dict(atol=2e-5, rtol=0.0), torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
@@ -170,6 +171,120 @@ def test_paged_engine_refuses_what_the_kernel_cannot_take(cuda, change, match):
     with pytest.raises(ValueError, match=match):
         PagedLLMEngine(PagedLLMConfig(model_config=cfg, max_batch_size=2, max_seq_len=128,
                                       block_size=block_size), device=cuda)
+
+
+# ---------------------------------------------------------------- PD, speculative decoding
+PROMPTS = [[5, 9, 13, 2, 7], [3, 3, 8], list(range(1, 40))]
+
+
+def _pd_tokens(cfg, params, device, block_size):
+    """Prefill on one engine, attach and decode on another; (tokens, paged
+    launches, decode steps)."""
+    conf = PagedLLMConfig(model_config=cfg, max_batch_size=4, max_seq_len=128,
+                          block_size=block_size)
+    prefiller = PagedLLMEngine(conf, params=_to(params, device), device=device)
+    decoder = PagedLLMEngine(conf, params=_to(params, device), device=device)
+    try:
+        before = pa.launches
+        handoffs = [prefiller.prefill_extract(p) for p in PROMPTS]
+        futs = [decoder.attach_sequence(h, 12) for h in handoffs]
+        tokens = [f.result(timeout=300).token_ids for f in futs]
+        return tokens, pa.launches - before, decoder.stats()["decode_steps"]
+    finally:
+        prefiller.shutdown()
+        decoder.shutdown()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_size", [4, 16])
+def test_tiny_pd_on_the_card_matches_the_cpu(cuda, block_size):
+    """LlamaConfig.tiny() (float32): the handoff's decode half runs the paged
+    kernel on the card at every step and gives the CPU pair's tokens."""
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    cpu_tokens, cpu_launches, _ = _pd_tokens(cfg, params, "cpu", block_size)
+    tokens, launches, steps = _pd_tokens(cfg, params, cuda, block_size)
+    assert cpu_launches == 0 and steps > 0 and launches == cfg.num_layers * steps
+    assert tokens == cpu_tokens
+
+
+def _spec_tokens(cfg, dcfg, params, draft, device, K, block_size=16):
+    eng = SpecDecodeLLMEngine(
+        SpecDecodeConfig(model_config=cfg, draft_model_config=dcfg, num_speculative_tokens=K,
+                         max_batch_size=4, max_seq_len=128, block_size=block_size),
+        params=_to(params, device), draft_params=_to(draft, device), device=device)
+    try:
+        before = pa.launches
+        futs = [eng.generate(p, 12) for p in PROMPTS]
+        tokens = [f.result(timeout=300).token_ids for f in futs]
+        return tokens, pa.launches - before, eng.stats()
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("same_draft", [False, True])
+def test_tiny_spec_decode_on_the_card_matches_the_cpu(cuda, same_draft):
+    """The draft's single-token decodes run the paged kernel on the card
+    ((K - 1) x layers a verify step) and the tokens are the CPU's; with
+    draft = target every proposal inside a request's budget is accepted."""
+    cfg, K = llama.LlamaConfig.tiny(), 4
+    params = llama.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    draft = params if same_draft else llama.init(cfg, torch.Generator().manual_seed(7), "cpu")
+    cpu_tokens, cpu_launches, cpu_stats = _spec_tokens(cfg, cfg, params, draft, "cpu", K, 4)
+    tokens, launches, stats = _spec_tokens(cfg, cfg, params, draft, cuda, K, 4)
+    steps = stats["decode_steps"]
+    assert cpu_launches == 0 and steps > 0 and launches == (K - 1) * cfg.num_layers * steps
+    assert tokens == cpu_tokens
+    if same_draft:
+        assert stats["accepted_tokens"] == stats["proposed_tokens"] > 0
+        assert cpu_stats["accepted_tokens"] == cpu_stats["proposed_tokens"]
+
+
+@pytest.mark.gpu
+def test_spec_decode_draft_runs_the_kernel_at_d64_group4(cuda):
+    """A draft at Llama-3.2-1B's attention shape (head dim 64, 8 query heads
+    a kv head pair, group 4), float32: the kernel at that shape on every
+    draft decode, and the CPU engine's tokens."""
+    dcfg = llama.LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                             num_layers=2, num_heads=8, num_kv_heads=2, head_dim=64,
+                             max_seq_len=128, dtype=torch.float32, remat=False)
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    draft = llama.init(dcfg, torch.Generator().manual_seed(1), "cpu")
+    cpu_tokens, _, _ = _spec_tokens(cfg, dcfg, params, draft, "cpu", 3)
+    tokens, launches, stats = _spec_tokens(cfg, dcfg, params, draft, cuda, 3)
+    assert launches == 2 * dcfg.num_layers * stats["decode_steps"] > 0
+    assert tokens == cpu_tokens
+
+
+@pytest.mark.gpu
+def test_spec_engine_refuses_a_draft_the_kernel_cannot_take(cuda):
+    dcfg = dataclasses.replace(llama.LlamaConfig.tiny(), hidden_size=192)  # head dim 48
+    with pytest.raises(ValueError, match="head dim"):
+        SpecDecodeLLMEngine(SpecDecodeConfig(model_config=llama.LlamaConfig.tiny(),
+                                             draft_model_config=dcfg, max_batch_size=2,
+                                             max_seq_len=128), device=cuda)
+
+
+@pytest.mark.gpu
+def test_tiny_moe_and_vit_on_the_card_match_the_cpu(cuda):
+    """MoEConfig.tiny() and ViTConfig.tiny() (float32): the card's logits are
+    the CPU's to atol 2e-4, the MoE aux loss to rtol 1e-5."""
+    mcfg, vcfg = moe.MoEConfig.tiny(), vit.ViTConfig.tiny()
+    mparams = moe.init(mcfg, torch.Generator().manual_seed(0), "cpu")
+    vparams = vit.init(vcfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, mcfg.base.vocab_size, (2, 64)))
+    images = torch.from_numpy(rng.random((4, 32, 32, 3), np.float32))
+    with torch.no_grad():
+        logits, aux = moe.forward(mparams, tokens, mcfg)
+        got, got_aux = moe.forward(_to(mparams, cuda), tokens.to(cuda), mcfg)
+        torch.testing.assert_close(got.cpu(), logits, atol=2e-4, rtol=0.0)
+        torch.testing.assert_close(got_aux.cpu(), aux, rtol=1e-5, atol=0.0)
+        want = vit.forward(vparams, images, vcfg)
+        got = vit.forward(_to(vparams, cuda), images.to(cuda), vcfg)
+        torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=0.0)
 
 
 # ---------------------------------------------------------------- flash attention

@@ -21,6 +21,8 @@ def test_no_module_imports_jax_or_ray_tpu():
     assert "ray_tpu_torch.ops.paged_attention" in modules
     assert "ray_tpu_torch.ops.flash_attention" in modules
     assert "ray_tpu_torch.train.spmd" in modules
+    for name in ("models.moe", "models.vit", "serve.spec_decode", "serve.llm_paged"):
+        assert f"ray_tpu_torch.{name}" in modules
     script = textwrap.dedent(f"""
         import importlib, sys
         for name in {modules!r}:
@@ -37,13 +39,21 @@ def test_no_module_imports_jax_or_ray_tpu():
 
 
 def test_engine_without_device_raises_when_no_card(monkeypatch):
+    from ray_tpu_torch.models import llama, moe, vit
     from ray_tpu_torch.serve.llm import LLMConfig, LLMEngine
     from ray_tpu_torch.serve.llm_paged import PagedLLMEngine
+    from ray_tpu_torch.serve.spec_decode import SpecDecodeConfig, SpecDecodeLLMEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LLMEngine(LLMConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PagedLLMEngine()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SpecDecodeLLMEngine(SpecDecodeConfig(draft_model_config=llama.LlamaConfig.tiny()))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        moe.init(moe.MoEConfig.tiny(), torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vit.init(vit.ViTConfig.tiny(), torch.Generator())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ray_tpu_torch.resolve_device()
