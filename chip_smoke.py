@@ -20,6 +20,16 @@
    depth (random weights from a seed) answers 8 concurrent requests; the
    paged kernel's launch counter is zeroed just before and read just after,
    and every decode step of every layer must have gone through the kernel.
+   Then the same engine on the same weights behind the port's serve control
+   plane: ray_tpu_torch.init(), serve.run(build_openai_app(...)) and the
+   HTTP proxy on a free port. Three completions one at a time must give the
+   bytes of a PagedLLMEngine called directly with the same ids; then 8
+   requests at once (5 completions, 2 chats, 1 SSE chat stream) must each
+   give 32 tokens, the stream the text of the same body sent after them,
+   with every decode step of the replica's engine through the paged kernel;
+   the stream's time to its first frame, request walls, requests/s, tokens/s
+   and the ingress's share of a request are logged. LlamaConfig.tiny()
+   served the same way on the card and on the CPU gives the same text.
    Then one decode step through forward_paged on the gather path and on the
    kernel path, from copies of the same pool, must agree, and a profile of
    that decode step, naming both paged launches. Then LlamaConfig.tiny()
@@ -74,17 +84,22 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+import ray_tpu_torch
+from ray_tpu_torch import serve as rt_serve
 from ray_tpu_torch.models import llama, moe, vit
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.serve.llm_paged import PagedLLMConfig, PagedLLMEngine
+from ray_tpu_torch.serve.openai_api import ByteTokenizer
 from ray_tpu_torch.serve.spec_decode import SpecDecodeConfig, SpecDecodeLLMEngine
 from ray_tpu_torch.train import spmd
 
@@ -156,6 +171,12 @@ TRAIN_F32_REF_TOL = {
 # the tiny serving check: LlamaConfig.tiny() at pages of 4 tokens
 TINY_BLOCK, TINY_NEW_TOKENS = 4, 12
 PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024)
+# HTTP serving (serve.run of build_openai_app on the main path's weights):
+# completions of the main path's first three prompt lengths as text, one at
+# a time; then a burst of 5 completions (the next five lengths), 2 chats and
+# 1 SSE chat stream sent at once
+HTTP_SEQUENTIAL_LENS, HTTP_BURST_LENS, HTTP_CHAT_LENS = (20, 75, 140), (233, 390, 600, 300,
+                                                                     557), (64, 180)
 # PD handoff: the first three of the main path's prompts; speculative
 # decoding: K draft tokens a step, all eight prompts
 PD_REQUESTS, SPEC_K = 3, 4
@@ -517,6 +538,193 @@ def decode_agreement_phase(card: str, cfg: llama.LlamaConfig, params) -> float:
 
 def tree_map(fn, params: dict) -> dict:
     return {n: tree_map(fn, p) if isinstance(p, dict) else fn(p) for n, p in params.items()}
+
+
+# ---------------------------------------------------------------- HTTP serving
+def text_of(n: int, rng) -> str:
+    """n printable ASCII characters: ByteTokenizer encodes them as n ids."""
+    return "".join(chr(int(c)) for c in rng.integers(32, 127, n))
+
+
+def http_post(port: int, sub: str, body: dict) -> tuple:
+    """POST /v1/<sub>: (the JSON answer, or a stream's chunks; wall seconds;
+    for a stream the seconds to its first data frame, else None)."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/{sub}",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.monotonic()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if not body.get("stream"):
+            return json.loads(r.read()), time.monotonic() - t0, None
+        chunks, first = [], None
+        for line in r:
+            line = line.decode().strip()
+            if not line:
+                continue
+            first = first if first is not None else time.monotonic() - t0
+            if line == "data: [DONE]":
+                break
+            chunk = json.loads(line[len("data: "):])
+            assert "error" not in chunk, chunk
+            chunks.append(chunk)
+        return chunks, time.monotonic() - t0, first
+
+
+def answer_text(out) -> str:
+    """The text of an OpenAI answer, or of its SSE chunks joined."""
+    if isinstance(out, list):
+        return "".join(c["choices"][0].get("text", c["choices"][0].get("delta", {})
+                                           .get("content", "")) for c in out)
+    choice = out["choices"][0]
+    return choice["text"] if "text" in choice else choice["message"]["content"]
+
+
+def serve_http_phase(card: str, cfg: llama.LlamaConfig, params) -> int:
+    """The main path's engine behind serve.run(build_openai_app(...)) and the
+    HTTP proxy, on the main path's weights. One request at a time, each
+    answer must be the bytes of a PagedLLMEngine called directly with the
+    same ids (one request alone runs the same shapes on both sides). Then
+    a burst of 8 requests at once: every answer 32 tokens, the stream's text
+    that of the same body sent after the burst, and every decode step of the
+    replica's engine through the paged kernel. Returns the burst's launches."""
+    tok = ByteTokenizer()
+    rng = np.random.default_rng(SEED + 9)
+    conf = PagedLLMConfig(model_config=cfg, max_batch_size=BATCH, max_seq_len=MAX_SEQ,
+                          block_size=BLOCK, prefill_buckets=PREFILL_BUCKETS)
+    seq_texts = [text_of(n, rng) for n in HTTP_SEQUENTIAL_LENS]
+    eng = PagedLLMEngine(conf, params=params, device=DEVICE)
+    try:
+        direct = [eng.generate_sync(tok.encode(t), NEW_TOKENS, timeout=600) for t in seq_texts]
+    finally:
+        eng.shutdown()
+    burst = [("completions", {"prompt": text_of(n, rng), "max_tokens": NEW_TOKENS})
+             for n in HTTP_BURST_LENS]
+    burst += [("chat/completions", {"messages": [{"role": "user", "content": text_of(n, rng)}],
+                                    "max_tokens": NEW_TOKENS}) for n in HTTP_CHAT_LENS]
+    stream_body = {"messages": [{"role": "system", "content": text_of(40, rng)},
+                                {"role": "user", "content": text_of(97, rng)}],
+                   "max_tokens": NEW_TOKENS}
+    burst.append(("chat/completions", {**stream_body, "stream": True}))
+    results: list = [None] * len(burst)
+
+    def client(i: int) -> None:
+        try:
+            results[i] = http_post(port, *burst[i])
+        except Exception as e:  # noqa: BLE001 - raised below, in the phase's thread
+            results[i] = e
+
+    ray_tpu_torch.init()
+    try:
+        t0 = time.monotonic()
+        handle = rt_serve.run(rt_serve.build_openai_app(conf, params=params),
+                              route_prefix="/v1")
+        t_run = time.monotonic() - t0
+        port = rt_serve.start_http_proxy(port=0).port
+        # the ingress alone: GET /v1/models goes client -> proxy -> router ->
+        # replica and back, and does no engine work
+        models_rtt = []
+        for _ in range(20):
+            t2 = time.monotonic()
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/models", timeout=60) as r:
+                assert json.loads(r.read())["data"][0]["object"] == "model"
+            models_rtt.append(time.monotonic() - t2)
+        seq = [http_post(port, "completions", {"prompt": t, "max_tokens": NEW_TOKENS})
+               for t in seq_texts]
+        # the replica's stats keep each request's engine timings, so the HTTP
+        # wall can be held against the engine's own total_s
+        served = ray_tpu_torch.get(handle.stats.remote(),
+                                   timeout=60)["recent_requests"][-len(seq_texts):]
+        # the stream's body once before the burst: its prompt blocks are then
+        # cached, so the stream and the same body after the burst both
+        # prefill the same suffix over the same cached blocks
+        warm = http_post(port, "chat/completions", stream_body)[0]
+        steps0 = ray_tpu_torch.get(handle.stats.remote(), timeout=60)["decode_steps"]
+        pa.launches = 0  # count only the burst's launches
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(burst))]
+        t1 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        burst_wall = time.monotonic() - t1
+        launches = pa.launches
+        steps = ray_tpu_torch.get(handle.stats.remote(), timeout=60)["decode_steps"] - steps0
+        after = http_post(port, "chat/completions", stream_body)[0]
+    finally:
+        rt_serve.shutdown()
+        ray_tpu_torch.shutdown()
+    failed = [r for r in results if not isinstance(r, tuple)]
+    assert not failed, failed
+    for (out, _, _), res in zip(seq, direct):
+        assert answer_text(out) == tok.decode(res.token_ids), (answer_text(out), res.token_ids)
+        assert out["usage"]["completion_tokens"] == res.num_generated == NEW_TOKENS
+    assert all(out["usage"]["completion_tokens"] == NEW_TOKENS for out, _, _ in results[:-1])
+    chunks, _, ttft = results[-1]
+    assert chunks[-1]["choices"][0]["finish_reason"] == "stop"
+    assert after["usage"]["completion_tokens"] == NEW_TOKENS
+    assert answer_text(chunks) == answer_text(after), (answer_text(chunks), answer_text(after))
+    assert steps > 0 and launches == cfg.num_layers * steps, (launches, steps)
+    walls = sorted(w for _, w, _ in results)
+    seq_walls = [w for _, w, _ in seq]
+    ingress = [w - r["total_s"] for w, r in zip(seq_walls, served)]
+    tokens = NEW_TOKENS * len(burst)
+    log(card, "HTTP serve: Llama-3-8B OpenAIServer via serve.run and the HTTP proxy",
+        serve_run_s=t_run, sequential_prompt_chars=list(HTTP_SEQUENTIAL_LENS),
+        sequential_same_bytes_as_direct_engine=True,
+        sequential_http_wall_ms=[1e3 * w for w in seq_walls],
+        sequential_replica_engine_total_ms=[1e3 * r["total_s"] for r in served],
+        sequential_direct_engine_total_ms=[1e3 * r.total_s for r in direct],
+        replica_decode_step_ms=[1e3 * (r["total_s"] - r["ttft_s"]) / (NEW_TOKENS - 1)
+                                for r in served],
+        direct_decode_step_ms=[1e3 * (r.total_s - r.ttft_s) / (NEW_TOKENS - 1) for r in direct],
+        wall_minus_replica_engine_ms=[1e3 * x for x in ingress],
+        models_roundtrip_p50_ms=1e3 * statistics.median(models_rtt),
+        models_roundtrip_max_ms=1e3 * max(models_rtt),
+        ingress_share=sum(ingress) / sum(seq_walls),
+        burst_requests=len(burst), new_tokens=NEW_TOKENS, burst_wall_s=burst_wall,
+        stream_ttft_ms=1e3 * ttft, request_wall_p50_ms=1e3 * statistics.median(walls),
+        request_wall_max_ms=1e3 * walls[-1], requests_per_s=len(burst) / burst_wall,
+        tokens_per_s_over_burst_wall=tokens / burst_wall, decode_steps=steps,
+        paged_decode_launches=launches, stream_same_text_as_after_burst=True,
+        warm_full_prefill_same_text_as_stream=answer_text(warm) == answer_text(after))
+    return launches
+
+
+def tiny_http_phase(card: str) -> None:
+    """LlamaConfig.tiny() (float32) at pages of TINY_BLOCK tokens served
+    through build_openai_app and the HTTP proxy, once on the CPU and once on
+    the card from the same weights: the same text for the same 3 bodies, and
+    on the card every decode step through the paged kernel."""
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    bodies = [("completions", {"prompt": "paged attention on Hopper",
+                               "max_tokens": TINY_NEW_TOKENS}),
+              ("chat/completions", {"messages": [{"role": "user", "content": "hi"}],
+                                    "max_tokens": TINY_NEW_TOKENS}),
+              ("completions", {"prompt": "y" * 39, "max_tokens": TINY_NEW_TOKENS})]
+    texts, launches, steps = {}, {}, {}
+    for where, device in (("cpu", torch.device("cpu")), ("card", DEVICE)):
+        ray_tpu_torch.init()
+        try:
+            handle = rt_serve.run(rt_serve.build_openai_app(
+                PagedLLMConfig(model_config=cfg, max_batch_size=4, max_seq_len=cfg.max_seq_len,
+                               block_size=TINY_BLOCK),
+                params=tree_map(lambda t: t.to(device), params), device=device),
+                route_prefix="/v1")
+            port = rt_serve.start_http_proxy(port=0).port
+            pa.launches = 0
+            texts[where] = [answer_text(http_post(port, sub, b)[0]) for sub, b in bodies]
+            launches[where] = pa.launches
+            steps[where] = ray_tpu_torch.get(handle.stats.remote(), timeout=60)["decode_steps"]
+        finally:
+            rt_serve.shutdown()
+            ray_tpu_torch.shutdown()
+    log(card, "tiny HTTP serve: LlamaConfig.tiny() via build_openai_app, card vs CPU",
+        block_size=TINY_BLOCK, decode_steps=steps, paged_decode_launches=launches,
+        same_text=texts["card"] == texts["cpu"])
+    assert steps["card"] > 0 and launches["card"] == cfg.num_layers * steps["card"], (
+        steps, launches)
+    assert launches["cpu"] == 0 and texts["card"] == texts["cpu"], texts
 
 
 def tiny_engine_phase(card: str) -> None:
@@ -1318,11 +1526,13 @@ def main() -> int:
     cfg = llama.LlamaConfig.llama_8b()
     kernels = [kernel_phase(card, cfg)]
     params, kernels[0]["launches"], plain = main_path_phase(card, cfg)
+    http_launches = serve_http_phase(card, cfg, params)
+    tiny_http_phase(card)
     near_tie = 2 * decode_agreement_phase(card, cfg, params)
     tiny_engine_phase(card)
-    # the other serving paths on the main path's weights: PD, speculative
-    # decoding, and the paged pair at the draft's shape
-    paths = {"decode (main path)": kernels[0]["launches"],
+    # the other serving paths on the main path's weights: HTTP, PD,
+    # speculative decoding, and the paged pair at the draft's shape
+    paths = {"decode (main path)": kernels[0]["launches"], "HTTP serve": http_launches,
              "PD decode": pd_phase(card, cfg, params, plain, near_tie)}
     gc.collect()
     paths.update(spec_phase(card, cfg, params, plain, near_tie))

@@ -15,7 +15,11 @@ The paths so far:
 - training: ``train.spmd.make_train_step`` -> ``models.llama.loss_fn`` ->
   the flash attention forward and backward kernels;
 - the MoE and ViT families (``models.moe``, ``models.vit``: ``forward`` and
-  ``loss_fn`` on dense attention, as the reference runs them).
+  ``loss_fn`` on dense attention, as the reference runs them);
+- an in-process runtime (``core``: ``init``, ``remote`` tasks and thread
+  actors, ``put``/``get``/``wait``, re-exported here) and the serve control
+  plane over it (``serve``: ``run``, ``start_http_proxy``,
+  ``build_openai_app``), so an HTTP request reaches ``PagedLLMEngine``.
 
 Entry points run on the first CUDA device unless the caller passes
 ``device="cpu"`` (the CPU tests do). With no CUDA device and no explicit
@@ -41,3 +45,8 @@ def resolve_device(device=None) -> torch.device:
                 "to run on the CPU")
         return torch.device("cuda", 0)
     return torch.device(device)
+
+
+from ray_tpu_torch.core.api import (available_resources, cluster_resources,  # noqa: E402
+                                    get, get_actor, init, is_initialized, kill, put, remote,
+                                    shutdown, wait)

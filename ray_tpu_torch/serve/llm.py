@@ -11,8 +11,8 @@ Sampling keeps the JAX engine's semantics: greedy is ``np.argmax`` over the
 host copy of the logits (ties break the same way); temperature sampling
 draws from the engine's own ``np.random.default_rng(seed)``.
 
-The serve deployment (``build_llm_deployment``) waits for the serve control
-plane to be ported.
+``build_llm_deployment`` serves the engine through the serve control plane
+(``serve/controller.py``).
 """
 
 from __future__ import annotations
@@ -334,3 +334,44 @@ class LLMEngine:
                 st.token_queue.put(None)  # end-of-stream
             if not st.future.done():
                 st.future.set_result(result)
+
+
+# ------------------------------------------------------------------ serve glue
+def build_llm_deployment(config: LLMConfig | None = None, num_replicas: int = 1, *,
+                         params=None, device=None):
+    """An LLMServer deployment. POST body: {"prompt_ids": [...], "max_tokens":
+    N} -> token ids, usage and timings. ``params`` (passed by reference) and
+    ``device`` (``None``: ``cuda:0``) go to the engine."""
+    from ray_tpu_torch.serve.deployment import deployment
+
+    cfg = config or LLMConfig()
+
+    @deployment(name="LLMServer", num_replicas=num_replicas,
+                ray_actor_options={"num_gpus": 0.0})
+    class LLMServer:
+        def __init__(self, llm_config: LLMConfig, params, device):
+            self.engine = LLMEngine(llm_config, params=params, device=device)
+
+        def __del__(self):  # the replica is gone: stop the engine's loop
+            if getattr(self, "engine", None) is not None:
+                self.engine.shutdown()
+
+        def __call__(self, body: dict) -> dict:
+            res = self.engine.generate_sync(body.get("prompt_ids", []), body.get("max_tokens"))
+            return {
+                "token_ids": res.token_ids,
+                "usage": {"prompt_tokens": res.num_prompt_tokens,
+                          "completion_tokens": res.num_generated},
+                "timings": {"ttft_s": res.ttft_s, "total_s": res.total_s},
+                "finish_reason": res.finish_reason,
+            }
+
+        def stats(self) -> dict:
+            return self.engine.stats()
+
+        def stream_tokens(self, body: dict):
+            """Generator: one token id per yield (serve streaming path)."""
+            yield from self.engine.generate_stream(body.get("prompt_ids", []),
+                                                   body.get("max_tokens"))
+
+    return LLMServer.bind(cfg, params, device)

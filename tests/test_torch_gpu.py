@@ -161,6 +161,53 @@ def test_tiny_paged_engine_on_the_card_matches_the_cpu(cuda, block_size):
 
 
 @pytest.mark.gpu
+def test_tiny_openai_app_over_http_on_the_card_matches_the_cpu(cuda):
+    """LlamaConfig.tiny() served by build_openai_app through serve.run and the
+    HTTP proxy, once on the CPU and once on the card from the same weights:
+    the same text for the same bodies, every decode step on the card through
+    the paged kernel."""
+    import json
+    import urllib.request
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    bodies = [("completions", {"prompt": "paged attention", "max_tokens": 12}),
+              ("chat/completions", {"messages": [{"role": "user", "content": "hi"}],
+                                    "max_tokens": 12}),
+              ("completions", {"prompt": "y" * 39, "max_tokens": 12})]
+    texts = {}
+    rt.init(num_cpus=4)
+    try:
+        for device in ("cpu", cuda):
+            serve.run(serve.build_openai_app(
+                PagedLLMConfig(model_config=cfg, max_batch_size=4, max_seq_len=128,
+                               block_size=4),
+                params=_to(params, device), device=device), route_prefix="/v1")
+            port = serve.start_http_proxy(port=0).port
+            before = pa.launches
+            outs = []
+            for sub, body in bodies:
+                req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/{sub}",
+                                             data=json.dumps(body).encode(),
+                                             headers={"Content-Type": "application/json"})
+                choice = json.loads(urllib.request.urlopen(req, timeout=120).read())["choices"][0]
+                outs.append(choice["text"] if "text" in choice else choice["message"]["content"])
+            texts[str(device)] = outs
+            stats = rt.get(serve.get_deployment_handle("OpenAIServer").stats.remote(), timeout=30)
+            launches = pa.launches - before
+            serve.shutdown()
+            assert stats["decode_steps"] > 0
+            assert launches == (cfg.num_layers * stats["decode_steps"] if device == cuda else 0)
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    assert texts[str(cuda)] == texts["cpu"]
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("change,match", [
     (dict(hidden_size=192), "head dim"),                  # head dim 48
     (dict(num_heads=32, num_kv_heads=2, head_dim=16), "times Hkv"),  # group 16

@@ -1,6 +1,9 @@
 """The port stands alone: no module of ray_tpu_torch imports jax or any part
-of ray_tpu, and its entry points refuse to fall back to the CPU silently."""
+of ray_tpu, importing it starts no thread, its runtime and serve layer stay
+in one process, and its entry points refuse to fall back to the CPU
+silently."""
 
+import ast
 import pkgutil
 import subprocess
 import sys
@@ -21,21 +24,53 @@ def test_no_module_imports_jax_or_ray_tpu():
     assert "ray_tpu_torch.ops.paged_attention" in modules
     assert "ray_tpu_torch.ops.flash_attention" in modules
     assert "ray_tpu_torch.train.spmd" in modules
-    for name in ("models.moe", "models.vit", "serve.spec_decode", "serve.llm_paged"):
+    for name in ("models.moe", "models.vit", "serve.spec_decode", "serve.llm_paged",
+                 "exceptions", "core.ids", "core.object_ref", "core.runtime", "core.api",
+                 "serve.deployment", "serve.controller", "serve.api", "serve.openai_api"):
         assert f"ray_tpu_torch.{name}" in modules
     script = textwrap.dedent(f"""
-        import importlib, sys
+        import importlib, sys, threading
+        before = threading.active_count()
+        import ray_tpu_torch, ray_tpu_torch.core, ray_tpu_torch.serve
+        started = threading.active_count() - before
         for name in {modules!r}:
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "ray_tpu" or m.startswith("ray_tpu."))
-        print(bad)
-        sys.exit(1 if bad else 0)
+        print(bad, "threads started by the import:", started)
+        sys.exit(1 if bad or started else 0)
     """)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+IN_PROCESS_ONLY = ("multiprocessing", "subprocess", "mmap", "ctypes")
+
+
+@pytest.mark.parametrize("package, banned", [
+    ("core", IN_PROCESS_ONLY + ("socket",)),  # the runtime opens no socket either
+    ("serve", IN_PROCESS_ONLY),
+])
+def test_runtime_and_serve_stay_in_one_process(package, banned):
+    """No worker process, shared memory or native library: the runtime and
+    the serve layer import none of the modules that make them, and never name
+    /dev/shm."""
+    files = sorted((REPO / "ray_tpu_torch" / package).glob("*.py"))
+    assert files
+    for path in files:
+        source = path.read_text()
+        assert "/dev/shm" not in source, path
+        for node in ast.walk(ast.parse(source)):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in banned, (path.name, name)
 
 
 def test_engine_without_device_raises_when_no_card(monkeypatch):
