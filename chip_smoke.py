@@ -36,6 +36,25 @@
    (head dim 16, float32) served at block size 4 by an engine on the card
    and one on the CPU from the same weights: every decode step through the
    kernel, the same greedy tokens.
+   Then the serve fleet, on the same Llama-3-8B weights shared by
+   reference: replicas of one deployment class around PagedLLMEngine (each
+   its own engine and 2.15 GB KV pool) behind serve.run and the HTTP proxy
+   with an admission gate on request anatomy's predictor. (1) Two replicas
+   under request_router="kv_aware": two families of 4 requests sharing a
+   256-token prefix, sent in pairs, stay one family to a replica whose
+   prefix hits grow by 16 blocks a later member, with a direct engine's
+   tokens (or a near-tie part); the same traffic under pow2 for its hits;
+   and the last logits of one body whole, at a second bucket and over its
+   cached prefix. (2) One replica with slo_ttft_ms: 4 sequential requests
+   leave ordered ledgers (phase p50s, TTFT quantiles, goodput, the
+   ingress's milliseconds); then, with the SLO lowered below the predicted
+   TTFT and a queue budget of 0, a burst of 8 is shed with 503 and
+   Retry-After, the shed counter equals the 503s, and no shed request has
+   a ledger or counts in goodput. (3) AutoscalingConfig 1..2 replicas on
+   ongoing requests: a burst of 16 in two waves scales to 2 replicas, the
+   second serves part of it, and after idle the deployment goes back to 1,
+   the retired engine's thread stopped and its KV pool freed. Every
+   sub-phase's decode steps go through the paged kernel.
    Then, on the same Llama-3-8B weights: prefill/decode disaggregation (a
    prefill engine extracts three prompts' KV pages to the host, a second
    engine attaches and decodes them through the paged kernel; the handoff's
@@ -86,7 +105,9 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
+import uuid
 
 import numpy as np
 import torch
@@ -98,6 +119,8 @@ from ray_tpu_torch.models import llama, moe, vit
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
+from ray_tpu_torch.serve import admission, anatomy
+from ray_tpu_torch.serve.controller import Router
 from ray_tpu_torch.serve.llm_paged import PagedLLMConfig, PagedLLMEngine
 from ray_tpu_torch.serve.openai_api import ByteTokenizer
 from ray_tpu_torch.serve.spec_decode import SpecDecodeConfig, SpecDecodeLLMEngine
@@ -177,6 +200,17 @@ PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024)
 # 1 SSE chat stream sent at once
 HTTP_SEQUENTIAL_LENS, HTTP_BURST_LENS, HTTP_CHAT_LENS = (20, 75, 140), (233, 390, 600, 300,
                                                                      557), (64, 180)
+# serve fleet (serve_fleet_phase), replicas of PagedFleet on the main path's
+# weights, each its own engine (batch 8, pages of 16, 1025 blocks): two
+# families of FLEET_MEMBERS requests, each family sharing a 256-token prefix
+# (16 pages) with distinct suffixes, FLEET_NEW_TOKENS new tokens each; the
+# sequential requests of the admission check (prompt lengths); the shed
+# burst; the autoscaling burst, sent as two waves of 8
+FLEET_MEMBERS, FLEET_PREFIX, FLEET_NEW_TOKENS = 4, 256, 16
+FLEET_SUFFIX_LENS = (20, 33, 47, 60)
+FLEET_ADMIT_LENS, FLEET_SHED_BURST, FLEET_SCALE_BURST = (40, 90, 150, 210), 8, 16
+FLEET_SLO_MS = 10_000.0  # the admission check's SLO, before it is lowered
+FLEET_POOL_TOL = 0.05  # KV pool freed by the scale-down, within 5 % of its bytes
 # PD handoff: the first three of the main path's prompts; speculative
 # decoding: K draft tokens a step, all eight prompts
 PD_REQUESTS, SPEC_K = 3, 4
@@ -755,6 +789,440 @@ def tiny_engine_phase(card: str) -> None:
     assert steps["card"] > 0 and launches["card"] == cfg.num_layers * steps["card"], (
         steps, launches)
     assert launches["cpu"] == 0 and tokens["card"] == tokens["cpu"], tokens
+
+
+# ---------------------------------------------------------------- serve fleet
+FLEET_THREADS: dict = {}  # replica key -> its engine's loop thread
+
+
+@rt_serve.deployment(name="PagedFleet", max_ongoing_requests=32)
+class PagedFleet:
+    """One PagedLLMEngine per replica on weights passed by reference. The
+    body is ``{"prompt_ids", "max_tokens"}`` (what the KV-aware router's
+    hint reads); the answer carries the tokens, the replica's key, its
+    engine's prefix-hit blocks and decode steps so far, and the seconds the
+    call took and spent per token after the first."""
+
+    def __init__(self, config, params):
+        self.key = uuid.uuid4().hex[:8]
+        self.engine = PagedLLMEngine(config, params=params, device=DEVICE)
+        FLEET_THREADS[self.key] = self.engine._loop_thread
+
+    def __del__(self):  # the replica is gone: stop the engine's loop
+        if getattr(self, "engine", None) is not None:
+            self.engine.shutdown()
+
+    def __call__(self, body):
+        t0 = time.monotonic()
+        rid = anatomy.rid_of(body)
+        ids, t_first = [], None
+        for tok in self.engine.generate_stream(body["prompt_ids"], body["max_tokens"]):
+            if t_first is None:
+                t_first = time.monotonic()
+                if rid is not None:
+                    anatomy.stamp(rid, "decode_first_token", anatomy.now_wall())
+            ids.append(int(tok))
+        t1 = time.monotonic()
+        st = self.engine.stats()
+        return {"token_ids": ids, "replica": self.key,
+                "prefix_hit_blocks": st["prefix_hit_blocks"], "decode_steps": st["decode_steps"],
+                "call_s": t1 - t0, "ms_per_token": 1e3 * (t1 - t_first) / max(len(ids) - 1, 1)}
+
+    def stats(self) -> dict:
+        return {"replica": self.key, **self.engine.stats()}
+
+
+def fleet_post(port: int, body: dict) -> tuple:
+    """POST /fleet: (status, Retry-After header, the answer, wall seconds,
+    monotonic time of the answer)."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/fleet",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.monotonic()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            status, retry, out = r.status, r.headers.get("Retry-After"), json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        status, retry, out = e.code, e.headers.get("Retry-After"), json.loads(e.read())
+    t1 = time.monotonic()
+    return status, retry, out, t1 - t0, t1
+
+
+def fleet_send(port: int, bodies: list) -> list:
+    """All bodies at once, one client thread each; the fleet_post results."""
+    results: list = [None] * len(bodies)
+
+    def client(i: int) -> None:
+        try:
+            results[i] = fleet_post(port, bodies[i])
+        except Exception as e:  # noqa: BLE001 - raised below, in the phase's thread
+            results[i] = e
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    failed = [r for r in results if not isinstance(r, tuple)]
+    assert not failed, failed
+    return results
+
+
+def fleet_replica_stats(name: str) -> list:
+    """Each live replica's engine stats, called on the replica itself."""
+    controller = ray_tpu_torch.get_actor("_serve_controller")
+    reps = ray_tpu_torch.get(controller.get_replicas.remote(name), timeout=60)
+    return ray_tpu_torch.get([r.handle_request.remote("stats", (), {}) for r in reps],
+                             timeout=60)
+
+
+def fleet_deploy(name: str, conf, params, **opts):
+    """Deploy PagedFleet under ``name`` at /fleet (the previous fleet
+    deployment deleted first); its handle."""
+    for old in rt_serve.status():
+        if old.startswith("Fleet"):
+            rt_serve.delete(old)
+    gc.collect()
+    return rt_serve.run(PagedFleet.options(name=name, **opts).bind(conf, params),
+                        route_prefix="/fleet")
+
+
+def direct_tokens(conf, params, bodies: list) -> tuple[list, list, list]:
+    """A PagedLLMEngine on the same weights, fed ``bodies`` one at a time in
+    order: each one's tokens, the engine's prefix-hit blocks after it, and
+    its ms per token after the first."""
+    eng = PagedLLMEngine(conf, params=params, device=DEVICE)
+    try:
+        out, hits, ms = [], [], []
+        for b in bodies:
+            res = eng.generate_sync(b, FLEET_NEW_TOKENS, timeout=600)
+            out.append(res.token_ids)
+            hits.append(eng.allocator.stats()["prefix_hit_blocks"])
+            ms.append(1e3 * (res.total_s - res.ttft_s) / max(res.num_generated - 1, 1))
+        return out, hits, ms
+    finally:
+        eng.shutdown()
+
+
+def prefix_bytes_probe(card: str, conf, params, body: list) -> None:
+    """The last logits of one body prefilled whole at two padded buckets,
+    and over its first FLEET_PREFIX tokens cached: whether the prefix cache
+    moves a bf16 answer's bytes on the card by more than the bucket alone."""
+    eng = PagedLLMEngine(conf, params=params, device=DEVICE, external_step=True)
+    try:
+        n, bs = len(body), BLOCK
+        pages = list(range(1, -(-n // bs) + 1))
+        more = [p + len(pages) for p in pages]
+
+        def last(tokens, table, start, bucket):
+            padded = np.zeros((1, bucket), np.int32)
+            padded[0, :len(tokens)] = tokens
+            row = np.zeros((1, eng.max_blocks_per_seq), np.int32)
+            row[0, :len(table)] = table
+            with torch.no_grad():
+                logits = eng._prefill(eng._tensor(padded), eng._tensor(row),
+                                      eng._tensor(np.asarray([start], np.int32)))
+            return logits[len(tokens) - 1].float()
+
+        full = last(body, pages, 0, 512)
+        full_1024 = last(body, more, 0, 1024)
+        hit = last(body[FLEET_PREFIX:], pages, FLEET_PREFIX, 64)
+        torch.cuda.synchronize()
+    finally:
+        eng.shutdown()
+    log(card, "serve fleet: bf16 prefix cache vs prefill bucket, last logits of one body",
+        prompt_tokens=n, cached_tokens=FLEET_PREFIX,
+        hit_vs_full_max_abs=(hit - full).abs().max().item(),
+        bucket1024_vs_bucket512_max_abs=(full_1024 - full).abs().max().item(),
+        hit_same_top1=bool(hit.argmax() == full.argmax()),
+        logit_scale=full.abs().max().item())
+
+
+def serve_fleet_phase(card: str, cfg: llama.LlamaConfig, params, tol: float) -> int:
+    """Serve replicas of PagedFleet, each with its own engine and KV pool on
+    the main path's weights, behind serve.run, the HTTP proxy (with an
+    admission gate on anatomy's predictor) and three routing setups:
+    1. KV-aware routing over 2 replicas: each family stays on one replica,
+       whose prefix hits grow by 16 blocks for each later member, and the
+       answers are a direct engine's fed the same family in order (or part
+       from them at a near-tie); the same traffic under pow2, for its hits;
+    2. anatomy and admission over 1 replica: 4 requests one at a time leave
+       ordered ledgers and a scoreboard; with the SLO lowered below the
+       prediction and a queue budget of 0, a burst is shed with 503 +
+       Retry-After, and the sheds are counted and never ledgered;
+    3. autoscaling 1 -> 2 -> 1 on ongoing requests: a second replica (and
+       KV pool) is built and serves part of a burst, and after idle it is
+       stopped and its pool freed.
+    Every sub-phase's decode steps go through the paged kernel (32 launches
+    a step a replica). Returns the launches of all three."""
+    conf = PagedLLMConfig(model_config=cfg, max_batch_size=BATCH, max_seq_len=MAX_SEQ,
+                          block_size=BLOCK, prefill_buckets=PREFILL_BUCKETS)
+    pool_bytes = (2 * cfg.num_layers * (BATCH * MAX_SEQ // BLOCK + 1) * BLOCK * cfg.num_kv_heads
+                  * cfg.hd * cfg.dtype.itemsize)
+    rng = np.random.default_rng(SEED + 11)
+    families = []
+    for _ in range(2):
+        prefix = rng.integers(0, cfg.vocab_size, FLEET_PREFIX).tolist()
+        families.append([prefix + rng.integers(0, cfg.vocab_size, n).tolist()
+                         for n in FLEET_SUFFIX_LENS])
+    admit_bodies = [rng.integers(0, cfg.vocab_size, n).tolist() for n in FLEET_ADMIT_LENS]
+    shed_bodies = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+                   for n in rng.integers(30, 200, FLEET_SHED_BURST)]
+    scale_bodies = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+                    for n in rng.integers(30, 300, FLEET_SCALE_BURST)]
+    t_phase = time.monotonic()
+    prefix_bytes_probe(card, conf, params, families[0][0])
+    direct = [direct_tokens(conf, params, fam) for fam in families]
+    total_launches = 0
+    anatomy.clear()
+    ray_tpu_torch.init()
+    try:
+        gate = admission.AdmissionGate(admission.anatomy_predictor,
+                                       admission.AdmissionConfig(queue_budget=0))
+        port = None
+        hits_by_router, kv = {}, {}
+        for router, name in (("kv_aware", "FleetKV"), ("pow2", "FleetPow2")):
+            handle = fleet_deploy(name, conf, params, num_replicas=2, request_router=router)
+            port = port or rt_serve.start_http_proxy(port=0, admission=gate.try_admit).port
+            pa.launches = 0
+            answers = [[None] * FLEET_MEMBERS for _ in families]
+            for m in range(FLEET_MEMBERS):
+                if m == 0:  # the first pair one after the other: the second
+                    # request sees the first in flight, as a client stream would
+                    first = threading.Thread(target=lambda: answers[0].__setitem__(
+                        0, fleet_post(port, {"prompt_ids": families[0][0],
+                                             "max_tokens": FLEET_NEW_TOKENS})))
+                    first.start()
+                    deadline = time.monotonic() + 60
+                    while (sum(handle._router.inflight_snapshot().values()) < 1
+                           and time.monotonic() < deadline):
+                        time.sleep(0.005)
+                    answers[1][0] = fleet_post(port, {"prompt_ids": families[1][0],
+                                                      "max_tokens": FLEET_NEW_TOKENS})
+                    first.join(timeout=600)
+                    continue
+                pair = fleet_send(port, [{"prompt_ids": fam[m], "max_tokens": FLEET_NEW_TOKENS}
+                                         for fam in families])
+                for f in range(2):
+                    answers[f][m] = pair[f]
+            launches = pa.launches
+            stats = fleet_replica_stats(name)
+            steps = sum(s["decode_steps"] for s in stats)
+            assert all(a[0] == 200 for fam in answers for a in fam), answers
+            assert steps > 0 and launches == cfg.num_layers * steps, (router, launches, steps)
+            total_launches += launches
+            hits_by_router[router] = {s["replica"]: s["prefix_hit_blocks"] for s in stats}
+            kv[router] = {"answers": answers, "launches": launches, "steps": steps}
+        answers = kv["kv_aware"]["answers"]
+        homes = [{a[2]["result"]["replica"] for a in fam} for fam in answers]
+        assert all(len(h) == 1 for h in homes) and homes[0] != homes[1], homes
+        for fam, (_, want_hits, _) in zip(answers, direct):
+            got_hits = [a[2]["result"]["prefix_hit_blocks"] for a in fam]
+            assert got_hits == want_hits == [16 * m for m in range(FLEET_MEMBERS)], (
+                got_hits, want_hits)
+        flat = [b for fam in families for b in fam]
+        rule = near_tie_rule(cfg, params, flat, [t for d in direct for t in d[0]],
+                             [a[2]["result"]["token_ids"] for fam in answers for a in fam], tol)
+        pair_ms = [a[2]["result"]["ms_per_token"] for fam in answers for a in fam]
+        alone_ms = [m for d in direct for m in d[2]]
+        log(card, "serve fleet 1: KV-aware routing, 2 Llama-3-8B PagedLLMEngine replicas",
+            families=2, members=FLEET_MEMBERS, prefix_tokens=FLEET_PREFIX,
+            suffix_tokens=list(FLEET_SUFFIX_LENS), new_tokens=FLEET_NEW_TOKENS,
+            kv_pool_gb_per_replica=pool_bytes / 1e9,
+            family_replicas=[sorted(h)[0] for h in homes],
+            prefix_hit_blocks_after_each_member=[
+                [a[2]["result"]["prefix_hit_blocks"] for a in fam] for fam in answers],
+            hit_blocks_kv_aware=sum(hits_by_router["kv_aware"].values()),
+            hit_blocks_pow2=sum(hits_by_router["pow2"].values()),
+            hit_blocks_pow2_by_replica=hits_by_router["pow2"],
+            decode_ms_per_token_two_replicas=pair_ms,
+            decode_ms_per_token_two_replicas_p50=statistics.median(pair_ms),
+            decode_ms_per_token_one_engine_alone=alone_ms,
+            decode_ms_per_token_one_engine_alone_p50=statistics.median(alone_ms),
+            decode_steps={r: kv[r]["steps"] for r in kv},
+            paged_decode_launches={r: kv[r]["launches"] for r in kv}, **rule)
+
+        # 2. anatomy and admission, one replica
+        handle = fleet_deploy("FleetGate", conf, params, num_replicas=1,
+                              slo_ttft_ms=FLEET_SLO_MS)
+        pa.launches = 0
+        steps0 = sum(s["decode_steps"] for s in fleet_replica_stats("FleetGate"))
+        t_gate = anatomy.now_wall()
+        seq = [fleet_post(port, {"prompt_ids": b, "max_tokens": FLEET_NEW_TOKENS})
+               for b in admit_bodies]
+        assert all(r[0] == 200 for r in seq), seq
+        view = anatomy.serve_view()
+        rows = [r for r in view["requests"] if r["deployment"] == "FleetGate"]
+        order = ("ingress_admit", "router_decision", "replica_queue_wait",
+                 "decode_first_token", "stream_complete")
+        assert len(rows) == len(admit_bodies), rows
+        for row in rows:
+            assert [p for p in anatomy.PHASES if p in row["phases"]] == list(order), row
+            t0s = [row["phases"][p]["t0"] for p in order]
+            assert all(b >= a for a, b in zip(t0s, t0s[1:])), row["phases"]
+        breakdown = anatomy.phase_breakdown(since_wall=t_gate)
+        assert breakdown["requests"] == len(admit_bodies), breakdown
+        board = view["deployments"]["FleetGate"]
+        log(card, "serve fleet 2a: request anatomy of 4 sequential requests over HTTP",
+            prompt_tokens=list(FLEET_ADMIT_LENS), new_tokens=FLEET_NEW_TOKENS,
+            phase_p50_ms={p: v["p50_ms"] for p, v in breakdown["phases"].items()},
+            ttft_ms=board["ttft_ms"], tpot_ms=board["tpot_ms"], slo_ttft_ms=board["slo_ttft_ms"],
+            goodput=board["goodput"], http_wall_ms=[1e3 * r[3] for r in seq],
+            replica_call_ms=[1e3 * r[2]["result"]["call_s"] for r in seq],
+            ingress_ms=[1e3 * (r[3] - r[2]["result"]["call_s"]) for r in seq])
+        low_slo = 1.0
+        anatomy.set_slo("FleetGate", low_slo)
+        shed_before = sum(v for tags, v in anatomy._M_SHED.snapshot().items()
+                          if dict(tags).get("deployment") == "FleetGate")
+        shed_results: list = [None]
+        first = threading.Thread(target=lambda: shed_results.__setitem__(
+            0, fleet_post(port, {"prompt_ids": shed_bodies[0],
+                                 "max_tokens": FLEET_NEW_TOKENS})))
+        first.start()
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            pred, _ = admission.anatomy_predictor("FleetGate")
+            if pred is not None and pred > low_slo:
+                break
+            time.sleep(0.002)
+        predicted = pred
+        shed_results += fleet_send(port, [{"prompt_ids": b, "max_tokens": FLEET_NEW_TOKENS}
+                                          for b in shed_bodies[1:]])
+        first.join(timeout=600)
+        steps = sum(s["decode_steps"] for s in fleet_replica_stats("FleetGate")) - steps0
+        launches = pa.launches
+        total_launches += launches
+        codes = [r[0] for r in shed_results]
+        n_shed = codes.count(503)
+        shed_after = sum(v for tags, v in anatomy._M_SHED.snapshot().items()
+                         if dict(tags).get("deployment") == "FleetGate")
+        assert n_shed >= 1 and set(codes) <= {200, 503}, codes
+        assert all(r[1] == "1" and r[2]["error"] == "shed" for r in shed_results
+                   if r[0] == 503), shed_results
+        assert shed_after - shed_before == n_shed, (shed_after, shed_before, n_shed)
+        view = anatomy.serve_view()
+        rows = [r for r in view["requests"] if r["deployment"] == "FleetGate"]
+        board = view["deployments"]["FleetGate"]
+        n_admitted = len(admit_bodies) + codes.count(200)
+        assert len(rows) == board["admitted"] == board["completed"] == n_admitted, (
+            len(rows), board)
+        assert board["slo_ok"] + board["slo_breach"] == n_admitted, board
+        admitted = admit_bodies + [b for b, r in zip(shed_bodies, shed_results) if r[0] == 200]
+        got = [r[2]["result"]["token_ids"] for r in seq + [r for r in shed_results
+                                                          if r[0] == 200]]
+        want, _, _ = direct_tokens(conf, params, admitted)
+        rule = near_tie_rule(cfg, params, admitted, want, got, tol)
+        assert steps > 0 and launches == cfg.num_layers * steps, (launches, steps)
+        log(card, "serve fleet 2b: admission gate, SLO lowered below the prediction",
+            slo_ttft_ms=low_slo, predicted_ttft_ms_at_burst=predicted, queue_budget=0,
+            burst=FLEET_SHED_BURST, answered_200=codes.count(200), shed_503=n_shed,
+            shed_counter=shed_after - shed_before, ledgers=len(rows),
+            goodput=board["goodput"], slo_ok=board["slo_ok"], slo_breach=board["slo_breach"],
+            decode_steps=steps, paged_decode_launches=launches, **rule)
+
+        # 3. autoscaling 1 -> 2 -> 1
+        for old in rt_serve.status():
+            rt_serve.delete(old)
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_empty = torch.cuda.memory_allocated()
+        fleet_deploy("FleetScale", conf, params, num_replicas=1,
+                     autoscaling_config=rt_serve.AutoscalingConfig(
+                         min_replicas=1, max_replicas=2, target_ongoing_requests=2,
+                         upscale_delay_s=0.5, downscale_delay_s=2))
+        first_key = fleet_replica_stats("FleetScale")[0]["replica"]
+        keys_before = set(FLEET_THREADS)
+        torch.cuda.synchronize()
+        mem_one = torch.cuda.memory_allocated()
+        seen: dict = {}
+        stop = threading.Event()
+
+        def watch() -> None:
+            while not stop.is_set():
+                st = rt_serve.status()["FleetScale"]
+                now = time.monotonic()
+                if st["target_replicas"] == 2:
+                    seen.setdefault("target2", now)
+                if "target2" in seen and st["target_replicas"] == 1:
+                    seen.setdefault("target1", now)
+                if "target1" in seen and st["running_replicas"] == 1:
+                    seen.setdefault("running1", now)
+                stop.wait(0.02)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        pa.launches = 0
+        bodies = [{"prompt_ids": b, "max_tokens": FLEET_NEW_TOKENS} for b in scale_bodies]
+        half = FLEET_SCALE_BURST // 2
+        wave1: list = []
+        sender = threading.Thread(target=lambda: wave1.extend(fleet_send(port, bodies[:half])))
+        t_burst = time.monotonic()
+        sender.start()
+        deadline = time.monotonic() + 60
+        while set(FLEET_THREADS) == keys_before and time.monotonic() < deadline:
+            time.sleep(0.01)  # until the second replica's constructor has run
+        (second_key,) = set(FLEET_THREADS) - keys_before
+        torch.cuda.synchronize()
+        mem_two = torch.cuda.memory_allocated()
+        # the proxy's router re-reads the replicas at its first pick one
+        # refresh period after wave 1's
+        time.sleep(max(0.0, t_burst + Router.REFRESH_S + 0.05 - time.monotonic()))
+        wave2 = fleet_send(port, bodies[half:])
+        sender.join(timeout=600)
+        answers = wave1 + wave2
+        assert all(r[0] == 200 for r in answers), answers
+        by_replica: dict = {}
+        for r in answers:
+            by_replica.setdefault(r[2]["result"]["replica"], []).append(r)
+        assert set(by_replica) == {first_key, second_key}, (
+            by_replica.keys(), {k: v - t_burst for k, v in seen.items()},
+            [r[4] - t_burst for r in answers])
+        deadline = time.monotonic() + 60
+        while (FLEET_THREADS[second_key].is_alive() or "running1" not in seen) \
+                and time.monotonic() < deadline:
+            time.sleep(0.02)
+        t_stopped = time.monotonic()  # the retired engine's loop has ended
+        stop.set()
+        watcher.join(timeout=10)
+        assert not FLEET_THREADS[second_key].is_alive(), "retired replica's engine still runs"
+        steps = sum(max(r[2]["result"]["decode_steps"] for r in rs)
+                    for rs in by_replica.values())
+        launches = pa.launches
+        total_launches += launches
+        deadline = time.monotonic() + 30
+        while True:  # the engine is released just after its loop stops
+            gc.collect()
+            torch.cuda.synchronize()
+            mem_end = torch.cuda.memory_allocated()
+            if abs(mem_end - mem_one) <= FLEET_POOL_TOL * pool_bytes \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        assert "target2" in seen and "target1" in seen, seen
+        assert mem_two - mem_one >= (1 - FLEET_POOL_TOL) * pool_bytes, (mem_two, mem_one)
+        assert abs(mem_end - mem_one) <= FLEET_POOL_TOL * pool_bytes, (mem_end, mem_one)
+        assert steps > 0 and launches == cfg.num_layers * steps, (launches, steps)
+        second_first = min(r[4] for r in by_replica[second_key])
+        log(card, "serve fleet 3: autoscaling on ongoing requests, 1 -> 2 -> 1 replicas",
+            burst=FLEET_SCALE_BURST, waves=2, target_ongoing_requests=2,
+            upscale_delay_s=0.5, downscale_delay_s=2,
+            answers_by_replica={k: len(v) for k, v in by_replica.items()},
+            s_burst_to_target2=seen["target2"] - t_burst,
+            s_target2_to_second_replica_first_answer=second_first - seen["target2"],
+            s_target2_to_target1=seen["target1"] - seen["target2"],
+            s_target2_to_running1=seen.get("running1", float("nan")) - seen["target2"],
+            s_target2_to_retired_engine_stopped=t_stopped - seen["target2"],
+            mem_empty_gb=mem_empty / 1e9, mem_one_replica_gb=mem_one / 1e9,
+            mem_two_replicas_gb=mem_two / 1e9, mem_after_scale_down_gb=mem_end / 1e9,
+            kv_pool_gb=pool_bytes / 1e9, freed_gb=(mem_two - mem_end) / 1e9,
+            decode_steps=steps, paged_decode_launches=launches)
+    finally:
+        rt_serve.shutdown()
+        ray_tpu_torch.shutdown()
+        anatomy.clear()
+    log(card, "serve fleet: phase wall", seconds=time.monotonic() - t_phase,
+        paged_decode_launches=total_launches)
+    return total_launches
 
 
 def device_events(prof) -> tuple[list, dict]:
@@ -1533,6 +2001,7 @@ def main() -> int:
     # the other serving paths on the main path's weights: HTTP, PD,
     # speculative decoding, and the paged pair at the draft's shape
     paths = {"decode (main path)": kernels[0]["launches"], "HTTP serve": http_launches,
+             "serve fleet": serve_fleet_phase(card, cfg, params, near_tie),
              "PD decode": pd_phase(card, cfg, params, plain, near_tie)}
     gc.collect()
     paths.update(spec_phase(card, cfg, params, plain, near_tie))

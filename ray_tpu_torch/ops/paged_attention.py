@@ -30,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 
@@ -38,6 +39,8 @@ from ray_tpu_torch.ops import _build
 NEG_INF = -1e30
 
 launches = 0  # kernel launches by paged_decode_attention, for path checks
+# serve replicas' engines launch from their own threads
+_launches_lock = threading.Lock()
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -199,5 +202,6 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths):
                 max_blocks, n_splits, Hq // Hkv, D, _DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention: kernel launch failed (cudaError {rc})")
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return out

@@ -11,6 +11,12 @@ frame; under a deployment that ``build_openai_app`` made, the OpenAI
 subpaths select its methods and the answer is the OpenAI object itself. 404
 for no route, 400 for a body that is not JSON, 500 for a failed request;
 requests time out after 60 s (120 s on the OpenAI subpaths).
+
+Each request passes the proxy's ``admission`` gate (if it has one) and is
+then admitted to request anatomy: a shed request gets 503 with
+``Retry-After: 1`` and never creates a ledger; an admitted one carries its
+ledger id in the body to the router and the replica, and the proxy records
+its completion (and a stream's first frame).
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import ray_tpu_torch
 from ray_tpu_torch.core.runtime import get_runtime
 from ray_tpu_torch.exceptions import TaskError
+from ray_tpu_torch.serve import anatomy, autoscale, batching, multiplex
 from ray_tpu_torch.serve.controller import (CONTROLLER_NAME, REPLICA_START_TIMEOUT_S,
                                             DeploymentHandle, ServeController)
 from ray_tpu_torch.serve.deployment import Application
@@ -101,13 +108,17 @@ def status() -> dict:
 
 
 def shutdown() -> None:
-    """Stop the proxy (its port is free again when this returns), delete
-    every deployment and stop the controller."""
+    """Stop the proxy (its port is free again when this returns), every SLO
+    autoscaler's loop and every batcher's pending flush, delete every
+    deployment and stop the controller."""
     with _lock:
         proxy, controller = _state["proxy"], _state["controller"]
         _state.update(controller=None, proxy=None, routes={})
     if proxy is not None:
         proxy.stop()
+    autoscale.stop_all()
+    batching.stop_all()
+    multiplex.shutdown()
     if controller is not None and ray_tpu_torch.is_initialized():
         try:
             ray_tpu_torch.get(controller.shutdown.remote(), timeout=30)
@@ -126,6 +137,21 @@ def _match_route(path: str, routes: dict | None = None):
     return best if best else (None, None)
 
 
+def _ntokens_of(result) -> int:
+    """Generated-token count from the common reply shapes (LLM bodies and
+    OpenAI objects both carry usage.completion_tokens)."""
+    if isinstance(result, dict):
+        usage = result.get("usage")
+        if isinstance(usage, dict):
+            try:
+                return int(usage.get("completion_tokens") or 0)
+            except (TypeError, ValueError):
+                return 0
+        if isinstance(result.get("token_ids"), (list, tuple)):
+            return len(result["token_ids"])
+    return 0
+
+
 def _json_safe(result):
     return result if isinstance(result, (dict, list, str, int, float)) or result is None \
         else repr(result)
@@ -133,10 +159,13 @@ def _json_safe(result):
 
 class HttpProxy:
     """The HTTP ingress. ``port=0`` takes a free port from the OS; ``port``
-    then reads back the one bound."""
+    then reads back the one bound. ``admission(deployment) -> (admitted,
+    shed reason)`` (an ``AdmissionGate.try_admit``, say) runs before a
+    request is admitted to anatomy; it may block while the gate queues."""
 
-    def __init__(self, host: str = "127.0.0.1", port: int = 8000):
+    def __init__(self, host: str = "127.0.0.1", port: int = 8000, admission=None):
         proxy = self
+        self._admission = admission
 
         class Handler(BaseHTTPRequestHandler):
             def do_POST(self):
@@ -156,11 +185,13 @@ class HttpProxy:
         self._thread.start()
 
     @staticmethod
-    def _reply(req: BaseHTTPRequestHandler, status: int, obj) -> None:
+    def _reply(req: BaseHTTPRequestHandler, status: int, obj, headers=None) -> None:
         data = json.dumps(obj).encode()
         req.send_response(status)
         req.send_header("Content-Type", "application/json")
         req.send_header("Content-Length", str(len(data)))
+        for k, v in (headers or {}).items():
+            req.send_header(k, v)
         req.end_headers()
         req.wfile.write(data)
 
@@ -175,25 +206,39 @@ class HttpProxy:
             body = json.loads(raw) if raw else {}
         except ValueError:  # a bad length, bytes that are not UTF-8, or not JSON
             return self._reply(req, 400, {"error": "invalid JSON body"})
+        dep = handle.deployment_name
+        if self._admission is not None:
+            ok, reason = self._admission(dep)
+            if not ok:
+                return self._reply(req, 503, {"error": "shed", "reason": reason,
+                                              "deployment": dep},
+                                   headers={"Retry-After": "1"})
+        # the proxy admits the request (its ledger id rides the body through
+        # router -> replica -> engine) and, having admitted, owns its
+        # completion record
+        rid = anatomy.admit(body, dep)
         sub = path[len(route.rstrip("/")):].strip("/")
-        if sub in _OPENAI_METHODS and handle.deployment_name in OPENAI_DEPLOYMENT_NAMES:
+        openai = sub in _OPENAI_METHODS and dep in OPENAI_DEPLOYMENT_NAMES
+        if openai:
             method, stream_method = _OPENAI_METHODS[sub]
             if isinstance(body, dict) and body.get("stream") and stream_method:
                 return self._stream(req, handle, {**body, "stream_method": stream_method})
-            try:
-                result = ray_tpu_torch.get(getattr(handle, method).remote(body),
-                                           timeout=_OPENAI_TIMEOUT_S)
-            except Exception as e:  # noqa: BLE001 - the client gets the error
-                return self._reply(req, 500, {"error": {"message": str(e)[:500],
-                                                        "type": type(e).__name__}})
-            return self._reply(req, 200, result)
-        if isinstance(body, dict) and body.get("stream"):
+            ref, timeout = getattr(handle, method).remote(body), _OPENAI_TIMEOUT_S
+        elif isinstance(body, dict) and body.get("stream"):
             return self._stream(req, handle, body)
+        else:
+            ref, timeout = handle.remote(body), _TIMEOUT_S
         try:
-            result = ray_tpu_torch.get(handle.remote(body), timeout=_TIMEOUT_S)
+            result = ray_tpu_torch.get(ref, timeout=timeout)
         except Exception as e:  # noqa: BLE001 - the client gets the error
-            return self._reply(req, 500, {"error": str(e)[:500]})
-        return self._reply(req, 200, {"result": _json_safe(result)})
+            if rid is not None:
+                anatomy.complete(rid, dep, ok=False, err=str(e)[:200])
+            err = ({"message": str(e)[:500], "type": type(e).__name__} if openai
+                   else str(e)[:500])
+            return self._reply(req, 500, {"error": err})
+        if rid is not None:
+            anatomy.complete(rid, dep, ntokens=_ntokens_of(result))
+        return self._reply(req, 200, result if openai else {"result": _json_safe(result)})
 
     @staticmethod
     def _stream(req: BaseHTTPRequestHandler, handle, body: dict) -> None:
@@ -202,7 +247,9 @@ class HttpProxy:
         req.send_header("Content-Type", "text/event-stream")
         req.send_header("Cache-Control", "no-cache")
         req.end_headers()
+        rid = anatomy.rid_of(body)
         it = handle.stream(body, method_name=body.get("stream_method", "stream_tokens"))
+        nframes, err = 0, None
         try:
             while True:
                 try:
@@ -213,12 +260,21 @@ class HttpProxy:
                     err = str(e).splitlines()[-1][:200] if str(e) else type(e).__name__
                     req.wfile.write(f"data: {json.dumps({'error': err})}\n\n".encode())
                     break
+                if nframes == 0 and rid is not None:
+                    # the client's first frame; stamped after a replica's
+                    # own first-token stamp, so in one process it is the one
+                    # the ledger keeps (as for the reference's head replicas)
+                    anatomy.stamp(rid, "decode_first_token", anatomy.now_wall())
+                nframes += 1
                 req.wfile.write(f"data: {json.dumps(item)}\n\n".encode())
             req.wfile.write(b"data: [DONE]\n\n")
         except ConnectionError:
-            pass  # the client went away; the replica finishes on its own
+            err = err or "client_disconnected"  # the replica finishes on its own
         finally:
             it.close()  # releases the router's in-flight slot
+            if rid is not None:
+                anatomy.complete(rid, handle.deployment_name, ntokens=nframes,
+                                 ok=err is None, err=err)
 
     def stop(self) -> None:
         """Stop serving and close the listening socket."""
@@ -227,9 +283,12 @@ class HttpProxy:
         self._thread.join(timeout=10)
 
 
-def start_http_proxy(host: str = "127.0.0.1", port: int = 8000) -> HttpProxy:
+def start_http_proxy(host: str = "127.0.0.1", port: int = 8000,
+                     admission=None) -> HttpProxy:
+    """Start the HTTP ingress (once per serve session); ``admission`` is
+    the gate its requests pass before they are admitted (see HttpProxy)."""
     _get_or_create_controller()  # binds the proxy to this runtime
     with _lock:
         if _state["proxy"] is None:
-            _state["proxy"] = HttpProxy(host, port)
+            _state["proxy"] = HttpProxy(host, port, admission=admission)
         return _state["proxy"]

@@ -2,11 +2,14 @@
 
 The port acts on ``name``, ``num_replicas``, ``max_ongoing_requests``,
 ``ray_actor_options`` (``num_cpus`` and ``num_gpus``: the in-process
-runtime places nothing else), ``user_config``, ``route_prefix`` and
-``health_check_period_s`` (how often the controller probes each replica).
-The fields the port does not act on yet raise ``NotImplementedError`` when
-set to anything but their default, naming the ROADMAP item that brings them;
-none is ignored silently.
+runtime places nothing else), ``autoscaling_config``, ``user_config``,
+``route_prefix``, ``health_check_period_s`` (how often the controller
+probes each replica), ``request_router`` (``"pow2"`` or ``"kv_aware"``;
+another name raises ``ValueError``) and ``slo_ttft_ms`` (the TTFT the
+anatomy scoreboard, admission control and the SLO autoscaler hold the
+deployment to). ``compiled_dispatch`` is not ported yet: set, it raises
+``NotImplementedError`` naming the ROADMAP item that brings it; nothing is
+ignored silently.
 """
 
 from __future__ import annotations
@@ -17,8 +20,11 @@ from typing import Any
 
 @dataclasses.dataclass
 class AutoscalingConfig:
-    """The reference's autoscaling bounds; the port's controller does not
-    scale yet (ROADMAP queue 1 item 3), so a deployment that sets one raises."""
+    """Autoscaling bounds and delays. ``policy="ongoing_requests"``: the
+    controller scales on the replicas' mean in-flight requests against
+    ``target_ongoing_requests``; ``policy="slo"``: a
+    ``serve.autoscale.DeploymentAutoscaler`` scales on predicted TTFT
+    against the deployment's ``slo_ttft_ms``."""
 
     min_replicas: int = 1
     max_replicas: int = 4
@@ -45,11 +51,10 @@ class DeploymentConfig:
 
 # field -> (its default, the ROADMAP item that brings it)
 _NOT_PORTED = {
-    "autoscaling_config": (None, "ROADMAP queue 1 item 3 (autoscale)"),
-    "request_router": ("pow2", "ROADMAP queue 1 item 3 (kv_router)"),
     "compiled_dispatch": (False, "ROADMAP queue 1 item 4 (compiled dispatch)"),
-    "slo_ttft_ms": (None, "ROADMAP queue 1 item 3 (anatomy and admission)"),
 }
+# the request_router names serve.kv_router.make_router knows
+REQUEST_ROUTERS = ("pow2", "kv_aware")
 
 
 _ACTOR_OPTIONS = {"num_cpus", "num_gpus"}
@@ -59,6 +64,9 @@ def _check_ported(cfg: DeploymentConfig) -> None:
     if not cfg.health_check_period_s > 0:
         raise ValueError(f"deployment {cfg.name!r}: health_check_period_s must be > 0, "
                          f"got {cfg.health_check_period_s!r}")
+    if cfg.request_router not in REQUEST_ROUTERS:
+        raise ValueError(f"deployment {cfg.name!r}: unknown request_router "
+                         f"{cfg.request_router!r} (known: {sorted(REQUEST_ROUTERS)})")
     other = sorted(set(cfg.ray_actor_options) - _ACTOR_OPTIONS)
     if other:
         raise NotImplementedError(
@@ -88,6 +96,8 @@ class Deployment:
         for k, v in opts.items():
             if not hasattr(cfg, k):
                 raise ValueError(f"Unknown deployment option: {k}")
+            if k == "autoscaling_config" and isinstance(v, dict):
+                v = AutoscalingConfig(**v)
             setattr(cfg, k, v)
         return Deployment(self.func_or_class, cfg, self.init_args, self.init_kwargs)
 

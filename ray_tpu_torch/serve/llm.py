@@ -309,9 +309,14 @@ class LLMEngine:
                     st.token_queue.put(tok)
                 self.lengths[i] += 1
                 self.last_tokens[i, 0] = tok
+        self._on_decoded()
         for i in range(self.config.max_batch_size):
             if self.active[i]:
                 self._maybe_finish(i, self.slots[i].generated[-1])
+
+    def _on_decoded(self) -> None:
+        """Called once a decode step's tokens are appended, before any
+        request of the step is finished (a subclass's stamp point)."""
 
     def _maybe_finish(self, slot: int, last_tok: int) -> None:
         st = self.slots[slot]

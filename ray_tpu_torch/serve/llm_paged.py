@@ -23,8 +23,9 @@ tensors in the pool's layout ``[L, Hkv, n_blocks, block_size, D]``.
 the JAX engine attaches as it is; numpy has no bfloat16, so a bf16 handoff
 exists only as torch tensors.
 
-The serve anatomy stamp (``decode_first_token``) comes with the serve
-control plane (ROADMAP queue 1 item 3); the ``"device"`` and ``"plane"``
+A handoff that carries a request anatomy id (``"_rid"``) has its
+``decode_first_token`` stamped by the first decode step that appends a
+token for it (serve/anatomy.py). The ``"device"`` and ``"plane"``
 transfers raise at construction.
 """
 
@@ -42,6 +43,7 @@ import torch
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.ops import paged_attention
+from ray_tpu_torch.serve import anatomy
 from ray_tpu_torch.serve.llm import LLMConfig, LLMEngine, _Slot
 from ray_tpu_torch.serve.paged_kv import BlockPool, NoFreeBlocks
 
@@ -70,6 +72,11 @@ class PagedLLMEngine(LLMEngine):
                 "'device' and 'plane' transfers wait for ROADMAP queue 1 items 4 and 7")
         # PD ops (prefill_extract / attach) processed on the engine thread
         self._ops: "queue.Queue" = queue.Queue()
+        # slot -> anatomy rid awaiting its first decoded token (an attached
+        # handoff's _rid); stamped and popped by the first decode step that
+        # appends a token for the slot, popped unstamped when the slot is
+        # released first (a 0/1-token request finishes at attach)
+        self._anatomy_pending: dict = {}
         # kv_transfer="plane" binds these (KVTransport.publish / pull) once it is ported
         self.kv_publish = self.kv_pull = None
         if resolve_device(device).type == "cuda":  # before any weight is made
@@ -118,6 +125,7 @@ class PagedLLMEngine(LLMEngine):
         blocks after they're reallocated to other sequences (silent KV
         corruption). Zeroed rows write into reserved garbage block 0."""
         super()._release_slot(i)
+        self._anatomy_pending.pop(i, None)
         self.tables[i] = 0
         self.lengths[i] = 0
         self.last_tokens[i] = 0
@@ -263,6 +271,13 @@ class PagedLLMEngine(LLMEngine):
         self._append_decoded(logits.cpu().numpy())
         return True
 
+    def _on_decoded(self) -> None:
+        if self._anatomy_pending:
+            t_w = anatomy.now_wall()
+            for i in list(self._anatomy_pending):
+                if self.active[i]:
+                    anatomy.stamp(self._anatomy_pending.pop(i), "decode_first_token", t_w)
+
     # ---- PD disaggregation handoff ----
     def prefill_extract(self, prompt_ids: list[int], timeout: float = 120.0) -> dict:
         """Prefill-only: compute the prompt's KV pages and first token, then
@@ -368,6 +383,9 @@ class PagedLLMEngine(LLMEngine):
         except BaseException:
             self.allocator.free(block_ids)
             raise
+        rid = handoff.get("_rid")
+        if rid is not None:
+            self._anatomy_pending[slot] = rid
         # a 1-token (or 0-token) request is already complete with first_token
         self._maybe_finish(slot, handoff["first_token"])
         return slot

@@ -6,8 +6,9 @@ ray_tpu/serve/openai_api.py): ``/v1/completions``,
 Tokenization is pluggable: any object with encode(str)->list[int] and
 decode(list[int])->str; the default is a byte-level tokenizer, so the surface
 works without model assets (with random weights the text is not language,
-but it is exact bytes to compare). The serve anatomy stamp waits for ROADMAP
-queue 1 item 3.
+but it is exact bytes to compare). A stream stamps its request's
+``decode_first_token`` on the replica when the engine yields the first
+token (serve/anatomy.py).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import collections
 import time
 import uuid
 
+from ray_tpu_torch.serve import anatomy
 from ray_tpu_torch.serve.deployment import deployment as _deployment
 
 # Deployments that opted into the OpenAI proxy surface (the proxy routes the
@@ -128,14 +130,20 @@ def build_openai_app(config=None, *, model_id: str = "ray-tpu-llm", tokenizer=No
                 "usage": self._usage(res),
             }
 
-        def _stream_deltas(self, ids: list[int], max_tokens):
+        def _stream_deltas(self, ids: list[int], max_tokens, body=None):
             """Incremental detokenization: decode the whole generated id list
             each step and emit the text delta, holding back a trailing
             partial character (a multi-byte character must not split into
             replacement characters across chunks)."""
+            arid = anatomy.rid_of(body)
             generated: list[int] = []
             emitted = ""
             for tok_id in self.engine.generate_stream(ids, max_tokens):
+                if arid is not None:
+                    # the replica's first-token clock (the proxy stamps the
+                    # client's first frame after it)
+                    anatomy.stamp(arid, "decode_first_token", anatomy.now_wall())
+                    arid = None
                 generated.append(int(tok_id))
                 text = self.tok.decode(generated)
                 if text.endswith("�"):
@@ -156,7 +164,7 @@ def build_openai_app(config=None, *, model_id: str = "ray-tpu-llm", tokenizer=No
             """Generator of OpenAI chat chunks (SSE frames at the proxy)."""
             rid = f"chatcmpl-{uuid.uuid4().hex[:24]}"
             ids = self.tok.encode(_render_chat(body.get("messages", [])))
-            for delta in self._stream_deltas(ids, body.get("max_tokens")):
+            for delta in self._stream_deltas(ids, body.get("max_tokens"), body):
                 yield self._chunk(rid, "chat.completion.chunk", body,
                                   {"delta": {"content": delta}, "finish_reason": None})
             yield self._chunk(rid, "chat.completion.chunk", body,
@@ -165,7 +173,7 @@ def build_openai_app(config=None, *, model_id: str = "ray-tpu-llm", tokenizer=No
         def completions_stream(self, body: dict):
             rid = f"cmpl-{uuid.uuid4().hex[:24]}"
             ids = self.tok.encode(_prompt_text(body))
-            for delta in self._stream_deltas(ids, body.get("max_tokens")):
+            for delta in self._stream_deltas(ids, body.get("max_tokens"), body):
                 yield self._chunk(rid, "text_completion", body,
                                   {"text": delta, "finish_reason": None})
             yield self._chunk(rid, "text_completion", body,

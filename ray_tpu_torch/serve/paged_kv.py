@@ -36,6 +36,7 @@ class BlockPool:
         self._block_chain: dict[int, int] = {}  # block id -> its chain hash
         self._lock = threading.Lock()
         self.prefix_hits = 0
+        self.prefix_hit_blocks = 0  # cached blocks those hits found
         self.prefix_queries = 0
 
     # ------------------------------------------------------------ allocation
@@ -113,6 +114,7 @@ class BlockPool:
                 self._ref[bid] = self._ref.get(bid, 0) + 1
             if hit_ids:
                 self.prefix_hits += 1
+                self.prefix_hit_blocks += len(hit_ids)
             return hit_ids, len(hit_ids) * bs
 
     def register_prefix(self, prompt: list[int], block_ids: list[int],
@@ -142,5 +144,6 @@ class BlockPool:
                 "allocated_blocks": self.num_blocks - 1 - len(self._free) - cached_free,
                 "cached_blocks": len(self._prefix),
                 "prefix_hits": self.prefix_hits,
+                "prefix_hit_blocks": self.prefix_hit_blocks,
                 "prefix_queries": self.prefix_queries,
             }

@@ -26,7 +26,10 @@ def test_no_module_imports_jax_or_ray_tpu():
     assert "ray_tpu_torch.train.spmd" in modules
     for name in ("models.moe", "models.vit", "serve.spec_decode", "serve.llm_paged",
                  "exceptions", "core.ids", "core.object_ref", "core.runtime", "core.api",
-                 "serve.deployment", "serve.controller", "serve.api", "serve.openai_api"):
+                 "serve.deployment", "serve.controller", "serve.api", "serve.openai_api",
+                 "serve.anatomy", "serve.admission", "serve.autoscale", "serve.kv_router",
+                 "serve.batching", "serve.multiplex", "util.metrics", "util.flight_recorder",
+                 "util.timeline"):
         assert f"ray_tpu_torch.{name}" in modules
     script = textwrap.dedent(f"""
         import importlib, sys, threading
@@ -52,11 +55,12 @@ IN_PROCESS_ONLY = ("multiprocessing", "subprocess", "mmap", "ctypes")
 @pytest.mark.parametrize("package, banned", [
     ("core", IN_PROCESS_ONLY + ("socket",)),  # the runtime opens no socket either
     ("serve", IN_PROCESS_ONLY),
+    ("util", IN_PROCESS_ONLY + ("socket",)),  # metrics and rings of this process only
 ])
 def test_runtime_and_serve_stay_in_one_process(package, banned):
-    """No worker process, shared memory or native library: the runtime and
-    the serve layer import none of the modules that make them, and never name
-    /dev/shm."""
+    """No worker process, shared memory or native library: the runtime, the
+    serve layer and the util layer it records into import none of the
+    modules that make them, and never name /dev/shm."""
     files = sorted((REPO / "ray_tpu_torch" / package).glob("*.py"))
     assert files
     for path in files:

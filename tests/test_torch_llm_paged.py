@@ -100,3 +100,79 @@ def test_dummy_decode_writes_only_garbage_block(shared_params):
     assert eng.pool["k"][:, :, 0].any()
     assert not eng.pool["k"][:, :, 1:].any() and not eng.pool["v"][:, :, 1:].any()
     assert eng.allocator.stats()["allocated_blocks"] == 0
+
+
+def _bf16_engines():
+    """The JAX and the port PagedLLMEngine in bfloat16 on LlamaConfig.tiny()
+    widths, from one JAX init (the port's weights through from_jax)."""
+    import dataclasses
+
+    import jax.numpy as jnp
+    import torch
+
+    jcfg = dataclasses.replace(jl.LlamaConfig.tiny(), dtype=jnp.bfloat16)
+    tcfg = dataclasses.replace(tl.LlamaConfig.tiny(), dtype=torch.bfloat16)
+    jparams = jl.init(jcfg, jax.random.PRNGKey(3))
+    tparams = tl.from_jax(jax.tree.map(lambda a: np.asarray(a.astype(jnp.float32)), jparams),
+                          tcfg, "cpu")
+    common = dict(max_batch_size=2, max_seq_len=128, block_size=16, num_blocks=32)
+    return (JaxPagedEngine(JaxPagedConfig(model_config=jcfg, **common), params=jparams),
+            PagedLLMEngine(PagedLLMConfig(model_config=tcfg, **common), params=tparams,
+                           device="cpu"))
+
+
+def _last_logits(eng, tokens, table, start):
+    """The engine's own prefill of ``tokens`` over ``table`` from position
+    ``start``; the float32 logits at the last token."""
+    import jax.numpy as jnp
+
+    padded = np.zeros((1, 32 if len(tokens) <= 32 else 64), np.int32)
+    padded[0, :len(tokens)] = tokens
+    row = np.zeros((1, eng.max_blocks_per_seq), np.int32)
+    row[0, :len(table)] = table
+    if isinstance(eng, JaxPagedEngine):
+        logits, eng.pool = eng._prefill(eng.params, eng.pool, jnp.asarray(padded),
+                                        jnp.asarray(row), jnp.asarray([start], np.int32))
+        return np.asarray(logits.astype(jnp.float32))[len(tokens) - 1]
+    logits = eng._prefill(eng._tensor(padded), eng._tensor(row),
+                          eng._tensor(np.asarray([start], np.int32)))
+    return logits.float().numpy()[len(tokens) - 1]
+
+
+def test_bf16_prefix_hit_keeps_the_bytes_in_both_engines():
+    """One body in bfloat16, prefilled whole and over a prefix cached by an
+    earlier request (two 16-token blocks): in the JAX engine and in the port
+    the last logits are the same bits either way, and so are the greedy
+    tokens through the engines' own prefix cache. The port moves no byte
+    the reference keeps, and both engines give the same tokens."""
+    jeng, teng = _bf16_engines()
+    rng = np.random.default_rng(0)
+    trials = [(rng.integers(3, 256, 32).tolist(), rng.integers(3, 256, 9 + t).tolist())
+              for t in range(3)]
+    try:
+        logits, tokens = {}, {}
+        for name, eng in (("jax", jeng), ("port", teng)):
+            for trial, (prefix, suffix) in enumerate(trials):
+                full = _last_logits(eng, prefix + suffix, [1, 2, 3], 0)
+                _last_logits(eng, prefix, [4, 5], 0)
+                hit = _last_logits(eng, suffix, [4, 5, 6], 32)
+                assert np.array_equal(full, hit), (name, trial, np.abs(full - hit).max())
+                logits.setdefault(name, []).append(full)
+            eng.allocator = type(eng.allocator)(32, 16)  # forget the pages used above
+            body = list(range(3, 35)) + [40, 41, 42]
+            alone = eng.generate_sync(body, 16).token_ids
+            eng.generate_sync(list(range(3, 35)) + [90], 2)  # body's blocks cached
+            hits = eng.allocator.stats()["prefix_hits"]
+            again = eng.generate_sync(body, 16).token_ids
+            assert eng.allocator.stats()["prefix_hits"] > hits, name
+            assert again == alone, name
+            tokens[name] = alone
+        assert tokens["port"] == tokens["jax"]
+        # XLA's and torch's bf16 arithmetic round differently: on these
+        # bodies the logits part by up to 1.1e-2 of the largest one (two bf16
+        # ulps), with the same top token
+        for a, b in zip(logits["port"], logits["jax"]):
+            assert np.abs(a - b).max() <= 2.5e-2 * np.abs(b).max() and a.argmax() == b.argmax()
+    finally:
+        jeng.shutdown()
+        teng.shutdown()

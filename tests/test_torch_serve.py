@@ -192,16 +192,16 @@ def test_route_prefix_conflict_rejected():
         serve.run(B1.bind(), route_prefix="/same")
 
 
-@pytest.mark.parametrize("field, value", [
-    ("autoscaling_config", serve.AutoscalingConfig()),
-    ("request_router", "kv_aware"),
-    ("compiled_dispatch", True),
-    ("slo_ttft_ms", 200.0),
-    ("ray_actor_options", {"isolate_process": True}),
-    ("ray_actor_options", {"resources": {"accelerator_slot": 1}}),
+@pytest.mark.parametrize("field, value, error, match", [
+    ("compiled_dispatch", True, NotImplementedError, "ROADMAP queue 1 item 4"),
+    ("ray_actor_options", {"isolate_process": True}, NotImplementedError,
+     "ROADMAP queue 1 item 4"),
+    ("ray_actor_options", {"resources": {"accelerator_slot": 1}}, NotImplementedError,
+     "ROADMAP queue 1 item 4"),
+    ("request_router", "nope", ValueError, "unknown request_router"),
 ])
-def test_unported_deployment_options_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+def test_unported_deployment_options_raise(field, value, error, match):
+    with pytest.raises(error, match=match):
         Echo.options(**{field: value})
 
 
