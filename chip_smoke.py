@@ -55,6 +55,15 @@
    second serves part of it, and after idle the deployment goes back to 1,
    the retired engine's thread stopped and its KV pool freed. Every
    sub-phase's decode steps go through the paged kernel.
+   Then the front door: two replicas under kv_aware behind
+   serve.start_front_door (one ingress, routing from the controller's
+   routing epochs). The fleet's two families, sent in pairs to the
+   ingress's own address, give the direct engine's tokens (or part at a
+   near-tie) through the paged kernel while the controller's call counts
+   do not move; set_target_replicas takes the deployment to 1 replica, the
+   ingress's epoch drops the retired one at a higher version, and one more
+   request is answered by the replica left. The ingress's milliseconds,
+   the epoch versions, shed counts and launches are logged.
    Then, on the same Llama-3-8B weights: prefill/decode disaggregation (a
    prefill engine extracts three prompts' KV pages to the host, a second
    engine attaches and decodes them through the paged kernel; the handoff's
@@ -64,7 +73,10 @@
    single-token decodes: (K - 1) x 16 layers a verify step), and the tokens
    must be the plain engine's, or part from them first at a near-tie within
    twice the kernel-vs-gather logit difference. Then the paged pair at the
-   draft's shape (D 64, group 4) against its plain version, and timed.
+   draft's shape (D 64, group 4) against its plain version, and timed; and
+   at the shapes it was widened to (head dims 48, 80, 96 and 256, a group
+   of 16, pages of 128 tokens), in bf16 and float32, each against its plain
+   version and timed beside SDPA and its byte bound.
 5. Flash kernels: forward, dQ and dK/dV each against its plain version
    (bf16 and float32; causal and not; GQA 1 and 4 at head dim 64 and 128,
    and at 16 and 96, which the wrappers zero-pad to 64 and 128; ragged S 1,
@@ -105,6 +117,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
 import uuid
@@ -233,6 +246,8 @@ MOE_F32_LOSS_REL_TOL = 1e-2
 TINY_LOGIT_ATOL = 2e-4
 FLASH_DTYPES = (torch.bfloat16, torch.float32)
 PAGED_KERNELS = ("paged_split_kernel", "paged_combine_kernel")  # the paged pair, in launch order
+# head dims the paged pair was widened to take (besides 16, 32, 64, 128)
+PAGED_NEW_HEAD_DIMS = (48, 80, 96, 256)
 FLASH_OUTPUTS = {"flash_fwd": ("o",), "flash_bwd_dq": ("dq",), "flash_bwd_dkv": ("dk", "dv")}
 FLASH_KERNELS = {  # name: (TPU kernel it replaces, tensor-core products per (q, k) pair,
     #                    the CUDA kernel that runs at the trainer's shapes)
@@ -342,9 +357,9 @@ def build_phase(card: str) -> None:
     assert len(paged) == 5 and all(r["spill_stores"] == 0 for r in paged.values()), paged
 
 
-def paged_inputs(dtype, cfg: llama.LlamaConfig, lengths, seed: int):
+def paged_inputs(dtype, cfg: llama.LlamaConfig, lengths, seed: int, block: int = BLOCK):
     rng = np.random.default_rng(seed)
-    B, max_blocks = len(lengths), MAX_SEQ // BLOCK
+    B, max_blocks = len(lengths), MAX_SEQ // block
     NB = B * max_blocks + 1
     tables = rng.permutation(np.arange(1, NB)).reshape(B, max_blocks).astype(np.int32)
 
@@ -353,8 +368,8 @@ def paged_inputs(dtype, cfg: llama.LlamaConfig, lengths, seed: int):
 
     hkv, hd = cfg.num_kv_heads, cfg.hd
     return (t(rng.standard_normal((B, cfg.num_heads, hd), np.float32)).to(dtype),
-            t(rng.standard_normal((hkv, NB, BLOCK, hd), np.float32)).to(dtype),
-            t(rng.standard_normal((hkv, NB, BLOCK, hd), np.float32)).to(dtype),
+            t(rng.standard_normal((hkv, NB, block, hd), np.float32)).to(dtype),
+            t(rng.standard_normal((hkv, NB, block, hd), np.float32)).to(dtype),
             t(tables), t(np.asarray(lengths, np.int32)))
 
 
@@ -938,7 +953,8 @@ def prefix_bytes_probe(card: str, conf, params, body: list) -> None:
         logit_scale=full.abs().max().item())
 
 
-def serve_fleet_phase(card: str, cfg: llama.LlamaConfig, params, tol: float) -> int:
+def serve_fleet_phase(card: str, cfg: llama.LlamaConfig, params,
+                      tol: float) -> tuple[int, list, list]:
     """Serve replicas of PagedFleet, each with its own engine and KV pool on
     the main path's weights, behind serve.run, the HTTP proxy (with an
     admission gate on anatomy's predictor) and three routing setups:
@@ -954,7 +970,8 @@ def serve_fleet_phase(card: str, cfg: llama.LlamaConfig, params, tol: float) -> 
        KV pool) is built and serves part of a burst, and after idle it is
        stopped and its pool freed.
     Every sub-phase's decode steps go through the paged kernel (32 launches
-    a step a replica). Returns the launches of all three."""
+    a step a replica). Returns the launches of all three, the two families
+    and what a direct engine answered to each."""
     conf = PagedLLMConfig(model_config=cfg, max_batch_size=BATCH, max_seq_len=MAX_SEQ,
                           block_size=BLOCK, prefill_buckets=PREFILL_BUCKETS)
     pool_bytes = (2 * cfg.num_layers * (BATCH * MAX_SEQ // BLOCK + 1) * BLOCK * cfg.num_kv_heads
@@ -1222,7 +1239,105 @@ def serve_fleet_phase(card: str, cfg: llama.LlamaConfig, params, tol: float) -> 
         anatomy.clear()
     log(card, "serve fleet: phase wall", seconds=time.monotonic() - t_phase,
         paged_decode_launches=total_launches)
-    return total_launches
+    return total_launches, families, direct
+
+
+def front_door_phase(card: str, cfg: llama.LlamaConfig, params, tol: float, families: list,
+                     direct: list) -> int:
+    """Two PagedFleet replicas under request_router="kv_aware" behind the
+    front door (serve.start_front_door: one ingress, routing from the
+    controller's routing epochs). The fleet phase's two families, sent in
+    pairs to the ingress's own address, give the direct engine's tokens (or
+    part from them at a near-tie) through the paged kernel, and the
+    controller sees no call while they are served. Then the controller's
+    set_target_replicas takes the deployment from 2 replicas to 1: the
+    epoch's version rises, the retired replica leaves the ingress's epoch,
+    and one more request is answered by the replica left. Returns the paged
+    launches."""
+    conf = PagedLLMConfig(model_config=cfg, max_batch_size=BATCH, max_seq_len=MAX_SEQ,
+                          block_size=BLOCK, prefill_buckets=PREFILL_BUCKETS)
+    t_phase = time.monotonic()
+    anatomy.clear()
+    ray_tpu_torch.init()
+    try:
+        fleet_deploy("FleetDoor", conf, params, num_replicas=2, request_router="kv_aware")
+        (addr,) = rt_serve.start_front_door()
+        port = addr[1]
+        controller = ray_tpu_torch.get_actor("_serve_controller")
+        fd = rt_serve.front_door._fd_state["front_door"]
+        (ingress,) = fd.ingress_actors().values()
+        v_start = ray_tpu_torch.get(ingress.epoch_version.remote(), timeout=60)
+        calls0 = ray_tpu_torch.get(controller.call_counts.remote(), timeout=60)
+        pa.launches = 0
+        answers = []
+        for m in range(FLEET_MEMBERS):
+            answers.append(fleet_send(port, [{"prompt_ids": fam[m],
+                                              "max_tokens": FLEET_NEW_TOKENS}
+                                             for fam in families]))
+        launches = pa.launches
+        calls1 = ray_tpu_torch.get(controller.call_counts.remote(), timeout=60)
+        request_calls = {k: n - calls0.get(k, 0) for k, n in calls1.items()
+                         if n != calls0.get(k, 0)}
+        assert all(a[0] == 200 for pair in answers for a in pair), answers
+        assert request_calls == {}, request_calls
+        stats = fleet_replica_stats("FleetDoor")
+        steps = sum(s["decode_steps"] for s in stats)
+        assert steps > 0 and launches == cfg.num_layers * steps, (launches, steps)
+        got = [[answers[m][f][2]["result"]["token_ids"] for m in range(FLEET_MEMBERS)]
+               for f in range(len(families))]
+        homes = [{answers[m][f][2]["result"]["replica"] for m in range(FLEET_MEMBERS)}
+                 for f in range(len(families))]
+        flat = [b for fam in families for b in fam]
+        rule = near_tie_rule(cfg, params, flat, [t for d in direct for t in d[0]],
+                             [t for fam in got for t in fam], tol)
+        walls = [a[3] for pair in answers for a in pair]
+        ingress_ms = [1e3 * (a[3] - a[2]["result"]["call_s"]) for pair in answers for a in pair]
+
+        # 2 -> 1 replicas through the controller; the ingress follows the epoch
+        assert ray_tpu_torch.get(controller.set_target_replicas.remote("FleetDoor", 1),
+                                 timeout=60) == 1
+        t_scale = time.monotonic()
+        deadline = t_scale + 60
+        while True:
+            epoch = ray_tpu_torch.get(ingress.epoch.remote(), timeout=60)
+            reps = epoch["deployments"]["FleetDoor"]["replicas"]
+            if len(reps) == 1 or time.monotonic() > deadline:
+                break
+            time.sleep(0.01)
+        t_epoch = time.monotonic()
+        v_after = epoch["version"]
+        assert len(reps) == 1 and v_after > v_start, (len(reps), v_start, v_after)
+        (left,) = fleet_replica_stats("FleetDoor")
+        before = pa.launches
+        extra = fleet_post(port, {"prompt_ids": families[0][0], "max_tokens": FLEET_NEW_TOKENS})
+        assert extra[0] == 200 and extra[2]["result"]["replica"] == left["replica"], extra
+        assert len(extra[2]["result"]["token_ids"]) == FLEET_NEW_TOKENS
+        extra_steps = extra[2]["result"]["decode_steps"] - left["decode_steps"]
+        assert pa.launches - before == cfg.num_layers * extra_steps > 0, (
+            pa.launches - before, extra_steps)
+        launches = pa.launches
+        view = rt_serve.front_door_view()
+        assert view["shed_counts"]["head"] == {}, view
+        log(card, "front door: 2 Llama-3-8B PagedLLMEngine replicas behind one ingress",
+            ingress=list(addr), router="kv_aware", families=len(families),
+            members=FLEET_MEMBERS, new_tokens=FLEET_NEW_TOKENS,
+            family_replicas=[sorted(h) for h in homes],
+            controller_calls_during_requests=request_calls,
+            http_wall_ms=[1e3 * w for w in walls], replica_call_ms=[
+                1e3 * a[2]["result"]["call_s"] for pair in answers for a in pair],
+            ingress_ms=ingress_ms, ingress_ms_p50=statistics.median(ingress_ms),
+            epoch_version_start=v_start, epoch_version_after_scale_down=v_after,
+            s_set_target_to_epoch_without_replica=t_epoch - t_scale,
+            extra_request_replica=extra[2]["result"]["replica"],
+            extra_request_wall_ms=1e3 * extra[3], shed_counts=view["shed_counts"],
+            decode_steps=steps, paged_decode_launches=launches, **rule)
+    finally:
+        rt_serve.shutdown()
+        ray_tpu_torch.shutdown()
+        anatomy.clear()
+    log(card, "front door: phase wall", seconds=time.monotonic() - t_phase,
+        paged_decode_launches=launches)
+    return launches
 
 
 def device_events(prof) -> tuple[list, dict]:
@@ -1763,6 +1878,52 @@ def draft_kernel_phase(card: str, dcfg: llama.LlamaConfig) -> dict:
     return out
 
 
+def paged_shapes_phase(card: str, cfg: llama.LlamaConfig) -> list[dict]:
+    """The paged pair at the shapes it was widened to take, at Llama-3-8B's
+    batch, query heads and serving lengths (B 8, Hq 32, MAX_SEQ 2048): head
+    dims 48, 80, 96 and 256 (Hkv 8, group 4, pages of 16), a group of 16 (D
+    128, Hkv 2: two chunks of 8 query heads on the grid), and pages of 128
+    tokens (D 128, Hkv 8: each read as 2 sub-pages of 64). In bf16 and
+    float32, each against its plain version on the main path's mid-decode
+    lengths and the ragged set (TOL), then timed (CUDA events, L2 flushed)
+    beside the plain version, SDPA over pre-gathered KV and the bound, and
+    the pair's own device time from torch.profiler (the events also hold
+    the wrapper's other launches and any wait for the host)."""
+    lengths = [len(p) + NEW_TOKENS // 2 for p in prompts(cfg)]
+    heads = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads, hd=cfg.hd)
+    shapes = [(f"D {d}", dict(heads, hd=d), BLOCK) for d in PAGED_NEW_HEAD_DIMS]
+    shapes += [("group 16, D 128", dict(heads, num_kv_heads=2), BLOCK),
+               ("pages of 128, D 128", heads, 128)]
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEVICE)
+    out = []
+    for label, shape, block in shapes:
+        scfg = types.SimpleNamespace(**shape)  # the attention shape paged_inputs reads
+        for dtype in FLASH_DTYPES:
+            err = 0.0
+            for lens in (lengths, KERNEL_LENGTHS):
+                args = paged_inputs(dtype, scfg, lens, SEED, block)
+                got = pa.paged_decode_attention(*args)
+                torch.cuda.synchronize()
+                ref = pa.paged_decode_attention_ref(*args)
+                torch.testing.assert_close(got, ref, **TOL[dtype])
+                assert torch.isfinite(got).all()
+                err = max(err, (got.float() - ref.float()).abs().max().item())
+            args = paged_inputs(dtype, scfg, lengths, SEED, block)
+            t = {"kernel_ms": time_ms(lambda: pa.paged_decode_attention(*args), flush),
+                 "plain_ms": time_ms(lambda: pa.paged_decode_attention_ref(*args), flush),
+                 "library_ms": time_ms(sdpa_call(args), flush)}
+            t["bound_ms"], t["bound_by"] = paged_bound(args)
+            t["bound_share"] = t["bound_ms"] / t["kernel_ms"]
+            t.update(paged_launch_split(args))  # the pair's own device time
+            row = {"shape": label, "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+                   "tol": TOL[dtype], "B": len(lengths), "Hq": scfg.num_heads,
+                   "Hkv": scfg.num_kv_heads, "D": scfg.hd, "BS": block,
+                   "sub_page": pa.sub_page_size(block), **t}
+            log(card, "paged_decode_attention at a widened shape", lengths=lengths, **row)
+            out.append(row)
+    return out
+
+
 # ---------------------------------------------------------------- MoE, ViT
 def grad_step_ms(loss_fn, leaves) -> tuple[float, float]:
     """(loss, host ms) of loss_fn() and its backward: the median of
@@ -2000,8 +2161,10 @@ def main() -> int:
     tiny_engine_phase(card)
     # the other serving paths on the main path's weights: HTTP, PD,
     # speculative decoding, and the paged pair at the draft's shape
+    fleet_launches, families, direct = serve_fleet_phase(card, cfg, params, near_tie)
     paths = {"decode (main path)": kernels[0]["launches"], "HTTP serve": http_launches,
-             "serve fleet": serve_fleet_phase(card, cfg, params, near_tie),
+             "serve fleet": fleet_launches,
+             "front door": front_door_phase(card, cfg, params, near_tie, families, direct),
              "PD decode": pd_phase(card, cfg, params, plain, near_tie)}
     gc.collect()
     paths.update(spec_phase(card, cfg, params, plain, near_tie))
@@ -2010,6 +2173,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels[0]["launches_by_path"] = paths
     kernels[0]["draft_shape"] = draft_kernel_phase(card, llama.LlamaConfig.llama_1b())
+    kernels[0]["widened_shapes"] = paged_shapes_phase(card, cfg)
     t_serve = time.monotonic() - t_start
 
     flash = flash_kernel_phase(card)

@@ -17,9 +17,11 @@ The paths so far:
 - the MoE and ViT families (``models.moe``, ``models.vit``: ``forward`` and
   ``loss_fn`` on dense attention, as the reference runs them);
 - an in-process runtime (``core``: ``init``, ``remote`` tasks and thread
-  actors, ``put``/``get``/``wait``, re-exported here) and the serve control
-  plane over it (``serve``: ``run``, ``start_http_proxy``,
-  ``build_openai_app``), so an HTTP request reaches ``PagedLLMEngine``.
+  actors, ``put``/``get``/``wait``, re-exported here; ``experimental.pubsub``
+  channels) and the serve control plane over it (``serve``: ``run``,
+  ``start_http_proxy``, ``build_openai_app``, the epoch-routed
+  ``start_front_door`` and ``start_grpc_proxy``), so an HTTP or gRPC
+  request reaches ``PagedLLMEngine``.
 
 Entry points run on the first CUDA device unless the caller passes
 ``device="cpu"`` (the CPU tests do). With no CUDA device and no explicit

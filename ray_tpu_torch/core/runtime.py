@@ -15,6 +15,9 @@ What serve needs, with the reference's semantics:
   ``ActorDiedError``.
 - ``shutdown`` poisons every mailbox, fails every unresolved ref, joins every
   thread against one deadline and clears the global runtime.
+- ``publisher``: the process's pub/sub channels (``core/pubsub.py``). Each
+  actor's state changes (PENDING, ALIVE, DEAD) are published on
+  ``"actors"``, as the reference's runtime publishes them.
 
 Nothing leaves the process: no worker process, no shared memory, no native
 store, no RPC. Every thread is a daemon thread, and every wait wakes at
@@ -32,6 +35,7 @@ from typing import Any, Callable, Optional
 
 from ray_tpu_torch.core.ids import ActorID, JobID, ObjectID, TaskID
 from ray_tpu_torch.core.object_ref import ObjectRef, ObjectRefGenerator
+from ray_tpu_torch.core.pubsub import Publisher
 from ray_tpu_torch.exceptions import ActorDiedError, GetTimeoutError, RayTpuError, TaskError
 
 STREAMING = "streaming"
@@ -119,6 +123,7 @@ class Runtime:
         self._actors: dict[ActorID, _Actor] = {}
         self._named: dict[str, ActorID] = {}
         self._threads: list[threading.Thread] = []
+        self.publisher = Publisher()
 
     # ------------------------------------------------------------ objects
     def add_ref(self, oid: ObjectID) -> None:
@@ -428,6 +433,7 @@ class Runtime:
                     raise ValueError(f"Actor with name '{name}' already exists")
                 self._named[name] = actor_id
             self._actors[actor_id] = actor
+        self._publish_actor_event(actor)
 
         def start():
             with actor.lock:
@@ -444,6 +450,13 @@ class Runtime:
 
         self._admit(actor.resources, start, lambda err: self._actor_died(actor, str(err)))
         return actor_id
+
+    def _publish_actor_event(self, actor: _Actor) -> None:
+        """Every actor state change goes out on the "actors" channel (the
+        reference's GCS actor channel)."""
+        self.publisher.publish("actors", {
+            "actor_id": actor.actor_id.hex(), "class_name": actor.cls.__name__,
+            "state": actor.state, "name": actor.name, "num_restarts": 0})
 
     def actor_ready(self, actor_id: ActorID) -> ObjectRef:
         """A ref that resolves to None once the actor's constructor returned,
@@ -478,6 +491,7 @@ class Runtime:
         del instance
         if not alive:
             return
+        self._publish_actor_event(actor)
         self._store(actor.ready_ref._id, False, None)
         for _ in range(spawn):
             self._spawn_actor_thread(actor)
@@ -558,6 +572,7 @@ class Runtime:
             release = actor.holds_resources
             actor.holds_resources = False
         del instance
+        self._publish_actor_event(actor)
         with self._cv:
             if actor.name and self._named.get(actor.name) == actor.actor_id:
                 del self._named[actor.name]

@@ -26,8 +26,9 @@
 // page in turn. Here the walk becomes parallel work plus one merge:
 //  - paged_split_kernel, grid (B, Hkv, n_splits): each CTA takes one run of
 //    pages_per_split pages of one sequence (SplitTiles::kTokens tokens cut
-//    to whole pages) and serves all g query heads of its kv head, so each
-//    page is still read once for the group. n_splits = ceil(max_blocks /
+//    to whole pages) and serves all g query heads of its kv head (up to 8;
+//    see below for more), so each page is still read once for the group.
+//    n_splits = ceil(max_blocks /
 //    pages_per_split) comes from the table's width on the host, never from
 //    lengths; a CTA whose first page lies at or past the live pages exits
 //    before it loads anything.
@@ -43,7 +44,7 @@
 //    reads); a chunk's max and sum cost two warp reductions per head per 32
 //    keys; P goes to the warp's own row of shared memory, and the PV product
 //    runs with lanes over D. Each warp keeps its float32 (m, l, acc[g, D])
-//    in registers, each lane D / 32 columns of acc.
+//    in registers, each lane about D / 32 columns of acc.
 //  - the warps merge once, at the end, through shared memory, and the CTA
 //    writes its split's partial (m, l, acc) to the workspace.
 //  - paged_combine_kernel: one warp per (sequence, query head) reads the
@@ -51,10 +52,22 @@
 //    max(sum_s e^(m_s - m*) l_s, 1e-30), m* = max_s m_s, in q's dtype. A
 //    length-0 row has no live split and gives zeros; a row with one live
 //    split gets weight e^0 = 1, the unsplit result.
-//  - head dims 16, 32, 64 and 128, a group of at most 8 (the kernel is
-//    built for groups of 1, 2, 4 and 8, smaller groups padded with zero
-//    rows of q), and any block size from 1 to 64: a page row of D >= 16
-//    values is a whole number of 16-byte chunks.
+//  - head dims 16, 32, 48, 64, 80, 96, 128 and 256. A K/V row is D / 8
+//    (bf16) or D / 4 (float32) 16-byte chunks: a power-of-two count is
+//    XOR-swizzled as above, any other count is stored with an odd row
+//    stride (one spare chunk), which spreads the eight rows a quarter-warp
+//    reads over eight bank groups as well. In the PV product a lane owns
+//    the next power of two at or above D / 32 columns, so at D 48, 80 and
+//    96 the last lanes hold none. A float32 D 256 row is 1 KB, and a split
+//    takes 64 tokens of it in a 128 KB tile (one CTA a SM).
+//  - groups: the kernel is built for groups of 1, 2, 4 and 8 (smaller
+//    groups padded with zero rows of q). A larger group is cut on the grid:
+//    grid (B, Hkv * n_chunks, n_splits), each CTA serving at most 8 query
+//    heads of its kv head, so registers stay those of a group of 8 and q
+//    and out are read and written in place; the chunks of one kv head read
+//    the same pages, the second time mostly from L2.
+//  - block sizes 1 to 64 here (a page row is a whole number of 16-byte
+//    chunks). The wrapper serves larger pages as runs of smaller ones.
 // What still limits it (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py and
 // scripts/torch_flash_ab.py --paged): the pair takes about 0.022 ms at the
 // main path's lengths against a 0.003 ms byte bound. Across length sets its
@@ -78,29 +91,9 @@
 
 namespace {
 
-constexpr int kMaxG = 8;    // query heads per kv head
+constexpr int kMaxG = 8;    // query heads a CTA serves
 constexpr int kMaxBS = 64;  // tokens per page
 constexpr float kNegInf = -1e30f;
-
-// The split tile: the tokens one CTA takes (whole pages of at most kTokens
-// tokens) and the warps that share them, 32 tokens a chunk. K and V of a
-// split stay within kSmemBudget, so float32 at D 128 takes 64 tokens.
-template <typename T, int D>
-struct SplitTiles {
-  static constexpr int kSmemBudget = 64 * 1024;
-  static constexpr int kWantTokens = 128;
-  static constexpr int kWantWarps = 4;
-  static constexpr int kFit = kSmemBudget / (2 * D * (int)sizeof(T));
-  static constexpr int kTokens = kWantTokens < kFit ? kWantTokens : kFit;
-  static constexpr int kWarps = kWantWarps < kTokens / 32 ? kWantWarps : kTokens / 32;
-  static constexpr int kChunks = kTokens / (32 * kWarps);  // 32-token chunks per warp
-  static constexpr int kThreads = 32 * kWarps;
-  // CTAs a SM holds by shared memory (K/V, plus ~8 KB of q, P and the
-  // merge's m and l), for the register budget in __launch_bounds__
-  static constexpr int kMinBlocks = (227 * 1024) / (kSmemBudget + 8 * 1024);
-  static_assert(kTokens >= kMaxBS && kTokens % (32 * kWarps) == 0, "split tile");
-  static_assert(2 * kChunks - 1 <= 7, "cp_async_wait takes at most 7 groups in flight");
-};
 
 constexpr int kCombineWarps = 4;
 
@@ -127,14 +120,18 @@ template <> struct VecOf<4> { using type = unsigned int; };
 template <> struct VecOf<8> { using type = uint2; };
 template <> struct VecOf<16> { using type = uint4; };
 
-// kN consecutive values of T (one 2- to 16-byte load) as float32
+// kN consecutive values of T as float32, in loads of at most 16 bytes
 template <typename T, int kN>
 __device__ __forceinline__ void load_floats(float (&out)[kN], const T* p) {
-  using V = typename VecOf<kN * sizeof(T)>::type;
-  const V raw = *reinterpret_cast<const V*>(p);
-  const T* t = reinterpret_cast<const T*>(&raw);
+  constexpr int kPer = kN * (int)sizeof(T) > 16 ? 16 / (int)sizeof(T) : kN;
+  using V = typename VecOf<kPer * sizeof(T)>::type;
 #pragma unroll
-  for (int e = 0; e < kN; ++e) out[e] = to_float(t[e]);
+  for (int i = 0; i < kN / kPer; ++i) {
+    const V raw = *reinterpret_cast<const V*>(p + i * kPer);
+    const T* t = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) out[i * kPer + e] = to_float(t[e]);
+  }
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -162,19 +159,70 @@ __device__ __forceinline__ void cp_async_wait(int n) {
   }
 }
 
-// A split's K (or V) rows in shared memory, [rows][D] in 16-byte chunks,
-// chunk c of row r stored at c ^ f(r): the eight rows a quarter-warp reads
-// at one chunk index land on eight distinct 16-byte bank groups.
+// A split's K (or V) rows in shared memory, [rows][kStride] 16-byte chunks.
+// A power-of-two chunk count is stored dense with chunk c of row r at
+// c ^ f(r): the eight rows a quarter-warp reads at one chunk index land on
+// eight distinct 16-byte bank groups. Any other count (D 48, 80, 96) is
+// padded to an odd stride, which does the same without the XOR.
 template <typename T, int D>
 struct RowLayout {
   static constexpr int kVec = 16 / (int)sizeof(T);  // values per chunk
   static constexpr int kChunks = D / kVec;          // chunks per row
+  static constexpr bool kPow2 = (kChunks & (kChunks - 1)) == 0;
+  static constexpr int kStride = kPow2 ? kChunks : (kChunks | 1);
+  static constexpr int kRowElems = kStride * kVec;  // values a row takes in shared memory
   static constexpr int kRowsPerLine = kChunks >= 8 ? 1 : 8 / kChunks;
-  static constexpr int kMask = (kChunks >= 8 ? 8 : kChunks) - 1;
+  static constexpr int kMask = kPow2 ? (kChunks >= 8 ? 8 : kChunks) - 1 : 0;
+  static_assert(D % kVec == 0, "a row is whole 16-byte chunks");
   __device__ static __forceinline__ int at(int r, int c) {
-    return (r * kChunks + (c ^ ((r / kRowsPerLine) & kMask))) * kVec;
+    return (r * kStride + (c ^ ((r / kRowsPerLine) & kMask))) * kVec;
   }
 };
+
+// The split tile: the tokens one CTA takes (whole pages of at most kTokens
+// tokens) and the warps that share them, 32 tokens a chunk. K and V of a
+// split stay within kSmemBudget, so float32 at D 128 takes 64 tokens; a row
+// of 1 KB (float32 at D 256) gets a 128 KB budget, again 64 tokens.
+template <typename T, int D>
+struct SplitTiles {
+  static constexpr int kRowBytes = RowLayout<T, D>::kRowElems * (int)sizeof(T);
+  static constexpr int kSmemBudget = (kRowBytes >= 1024 ? 128 : 64) * 1024;
+  static constexpr int kWantTokens = 128;
+  static constexpr int kWantWarps = 4;
+  static constexpr int kFit = kSmemBudget / (2 * kRowBytes) / 32 * 32;
+  static constexpr int kTokens = kWantTokens < kFit ? kWantTokens : kFit;
+  static constexpr int kWarps = kWantWarps < kTokens / 32 ? kWantWarps : kTokens / 32;
+  static constexpr int kChunks = kTokens / (32 * kWarps);  // 32-token chunks per warp
+  static constexpr int kThreads = 32 * kWarps;
+  // CTAs a SM holds by shared memory (K/V, plus ~8 KB of q, P and the
+  // merge's m and l), for the register budget in __launch_bounds__
+  static constexpr int kMinBlocks = (227 * 1024) / (kSmemBudget + 8 * 1024);
+  static_assert(kTokens >= kMaxBS && kTokens % (32 * kWarps) == 0, "split tile");
+  static_assert(2 * kChunks - 1 <= 7, "cp_async_wait takes at most 7 groups in flight");
+};
+
+// PV columns a lane owns: the next power of two at or above D / 32, so each
+// lane's columns sit in one or more whole 16-byte chunks
+template <int D>
+struct ColsPerLane {
+  static constexpr int value = D <= 32 ? 1 : D <= 64 ? 2 : D <= 128 ? 4 : D <= 256 ? 8 : 0;
+  static_assert(value > 0 && D % value == 0, "head dim");
+};
+
+// the kN values of row r from column col on, one load per 16-byte chunk
+template <typename T, int D, int kN>
+__device__ __forceinline__ void load_row_cols(float (&out)[kN], const T* rows, int r, int col) {
+  using Row = RowLayout<T, D>;
+  constexpr int kPer = kN < Row::kVec ? kN : Row::kVec;
+#pragma unroll
+  for (int i = 0; i < kN / kPer; ++i) {
+    const int cc = col + i * kPer;
+    float part[kPer];
+    load_floats<T, kPer>(part, rows + Row::at(r, cc / Row::kVec) + cc % Row::kVec);
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) out[i * kPer + e] = part[e];
+  }
+}
 
 template <typename T, int D, int G>
 __global__ void __launch_bounds__(SplitTiles<T, D>::kThreads, SplitTiles<T, D>::kMinBlocks)
@@ -182,20 +230,23 @@ paged_split_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pages, const T* __restrict__ v_pages,
     const int* __restrict__ tables, const int* __restrict__ lengths, float* __restrict__ ws_acc,
     float* __restrict__ ws_m, float* __restrict__ ws_l, int num_pages_pool, int block_size,
-    int max_blocks, int pages_per_split, int n_splits, int g, float scale) {
+    int max_blocks, int pages_per_split, int n_splits, int hq, int g, int n_chunks,
+    float scale) {
   using Tiles = SplitTiles<T, D>;
   using Row = RowLayout<T, D>;
   constexpr int kWarps = Tiles::kWarps, kChunks = Tiles::kChunks;
-  constexpr int kCols = D >= 32 ? D / 32 : 1;  // PV columns a lane owns
-  constexpr int kColBytes = kCols * (int)sizeof(T);
+  constexpr int kCols = ColsPerLane<D>::value;  // PV columns a lane owns
 
   extern __shared__ __align__(16) unsigned char smem[];  // K, V; then the warps' acc
   __shared__ __align__(16) float q_s[G * D];
   __shared__ __align__(16) float p_s[kWarps][32][G];     // each warp's P, key-major
   __shared__ float ml_s[kWarps][2][G];
 
-  const int b = blockIdx.x, kh = blockIdx.y, split = blockIdx.z;
-  const int hq = gridDim.y * g;
+  const int b = blockIdx.x, split = blockIdx.z;
+  const int kh = blockIdx.y / n_chunks;              // kv head
+  const int h0 = (blockIdx.y % n_chunks) * G;        // first query head of the chunk
+  const int gc = min(G, g - h0);                     // query heads this CTA serves
+  const size_t q_row0 = (size_t)b * hq + (size_t)kh * g + h0;
   const int len = lengths[b];
   const int live_pages = len > 0 ? min((len + block_size - 1) / block_size, max_blocks) : 0;
   const int first_page = split * pages_per_split;
@@ -206,7 +257,7 @@ paged_split_kernel(
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   T* k_s = reinterpret_cast<T*>(smem);
-  T* v_s = k_s + (size_t)pages_per_split * block_size * D;
+  T* v_s = k_s + (size_t)pages_per_split * block_size * Row::kRowElems;
   const size_t page_elems = (size_t)block_size * D;
   const T* k_head = k_pages + (size_t)kh * num_pages_pool * page_elems;
   const T* v_head = v_pages + (size_t)kh * num_pages_pool * page_elems;
@@ -239,10 +290,10 @@ paged_split_kernel(
     }
   }
 
-  // the group's query rows in float32; rows g..G-1 are zeros
+  // the chunk's query rows in float32; rows gc..G-1 are zeros
   for (int x = tid; x < G * D; x += Tiles::kThreads) {
     const int h = x / D;
-    q_s[x] = h < g ? to_float(q[((size_t)b * hq + (size_t)kh * g) * D + x]) : 0.f;
+    q_s[x] = h < gc ? to_float(q[q_row0 * D + x]) : 0.f;
   }
   __syncthreads();
 
@@ -254,8 +305,7 @@ paged_split_kernel(
 #pragma unroll
     for (int c = 0; c < kCols; ++c) acc[h][c] = 0.f;
   }
-  const bool lane_cols = lane * kCols < D;  // false only for lanes 16-31 at D 16
-  const int col_chunk = lane * kColBytes / 16, col_in = (lane * kColBytes % 16) / (int)sizeof(T);
+  const bool lane_cols = lane * kCols < D;  // false for the lanes past D / kCols
 
 #pragma unroll
   for (int i = 0; i < kChunks; ++i) {
@@ -310,7 +360,7 @@ paged_split_kernel(
 #pragma unroll 4
       for (int j = 0; j < n_valid; ++j) {
         float vf[kCols];
-        load_floats<T, kCols>(vf, v_s + Row::at(r0 + j, col_chunk) + col_in);
+        load_row_cols<T, D, kCols>(vf, v_s, r0 + j, lane * kCols);
         float p[G];
         if constexpr (G % 4 == 0) {
 #pragma unroll
@@ -349,7 +399,7 @@ paged_split_kernel(
     }
   }
   __syncthreads();
-  for (int x = tid; x < g * D; x += Tiles::kThreads) {
+  for (int x = tid; x < gc * D; x += Tiles::kThreads) {
     const int h = x / D, d = x % D;
     float m = kNegInf;
 #pragma unroll
@@ -363,7 +413,7 @@ paged_split_kernel(
       a += wt * acc_s[(w * G + h) * D + d];
       l += wt * ml_s[w][1][h];
     }
-    const size_t row = ((size_t)b * hq + (size_t)kh * g + h) * n_splits + split;
+    const size_t row = (q_row0 + h) * n_splits + split;
     ws_acc[row * D + d] = a;
     if (d == 0) {
       ws_m[row] = m;
@@ -379,7 +429,7 @@ __global__ void __launch_bounds__(32 * kCombineWarps) paged_combine_kernel(
     const float* __restrict__ ws_acc, const float* __restrict__ ws_m,
     const float* __restrict__ ws_l, const int* __restrict__ lengths, T* __restrict__ out,
     int n_rows, int hq, int block_size, int max_blocks, int pages_per_split, int n_splits) {
-  constexpr int kCols = D >= 32 ? D / 32 : 1;
+  constexpr int kCols = ColsPerLane<D>::value;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kCombineWarps + (threadIdx.x >> 5);  // b * hq + h
   if (row >= n_rows) return;
@@ -430,7 +480,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* table
   const int pps = split_pages<T, D>(BS);
   if (n_splits < 1 || n_splits > 65535 || (long long)n_splits * pps < max_blocks)
     return cudaErrorInvalidValue;
-  const size_t kv = 2 * (size_t)pps * BS * D * sizeof(T);
+  const size_t kv = 2 * (size_t)pps * BS * RowLayout<T, D>::kRowElems * sizeof(T);
   const size_t merge = (size_t)Tiles::kWarps * G * D * sizeof(float);
   const size_t smem = kv > merge ? kv : merge;
   auto kernel = paged_split_kernel<T, D, G>;
@@ -440,13 +490,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* table
     if (err != cudaSuccess) return err;
   }
   const int hq = Hkv * g;
+  const int n_chunks = (g + G - 1) / G;  // query-head chunks of a kv head
+  if ((long long)Hkv * n_chunks > 65535) return cudaErrorInvalidValue;
   const size_t parts = (size_t)B * hq * n_splits;
   float* ws_acc = ws;
   float* ws_m = ws_acc + parts * D;
   float* ws_l = ws_m + parts;
-  kernel<<<dim3(B, Hkv, n_splits), Tiles::kThreads, smem, stream>>>(
+  kernel<<<dim3(B, Hkv * n_chunks, n_splits), Tiles::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), tables,
-      lengths, ws_acc, ws_m, ws_l, NB, BS, max_blocks, pps, n_splits, g,
+      lengths, ws_acc, ws_m, ws_l, NB, BS, max_blocks, pps, n_splits, hq, g, n_chunks,
       1.0f / sqrtf((float)D));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -471,6 +523,7 @@ cudaError_t launch_group(const void* q, const void* k, const void* v, const int*
   if (g <= 4)
     return launch<T, D, 4>(q, k, v, tables, lengths, out, ws, B, Hkv, NB, BS, max_blocks,
                            n_splits, g, stream);
+  // a group above 8 runs as chunks of 8 query heads on the grid
   return launch<T, D, kMaxG>(q, k, v, tables, lengths, out, ws, B, Hkv, NB, BS, max_blocks,
                              n_splits, g, stream);
 }
@@ -484,13 +537,16 @@ extern "C" int paged_decode_split_pages(int BS, int D, int dtype) {
   if (BS < 1 || BS > kMaxBS) return 0;
 #define PAGED_SPLIT(T, DIM) \
   if (D == DIM) return split_pages<T, DIM>(BS);
+#define PAGED_SPLIT_DIMS(T)                                                     \
+  PAGED_SPLIT(T, 16) PAGED_SPLIT(T, 32) PAGED_SPLIT(T, 48) PAGED_SPLIT(T, 64) \
+  PAGED_SPLIT(T, 80) PAGED_SPLIT(T, 96) PAGED_SPLIT(T, 128) PAGED_SPLIT(T, 256)
   if (dtype == 0) {
-    PAGED_SPLIT(float, 16) PAGED_SPLIT(float, 32) PAGED_SPLIT(float, 64) PAGED_SPLIT(float, 128)
+    PAGED_SPLIT_DIMS(float)
   }
   if (dtype == 1) {
-    PAGED_SPLIT(__nv_bfloat16, 16) PAGED_SPLIT(__nv_bfloat16, 32)
-    PAGED_SPLIT(__nv_bfloat16, 64) PAGED_SPLIT(__nv_bfloat16, 128)
+    PAGED_SPLIT_DIMS(__nv_bfloat16)
   }
+#undef PAGED_SPLIT_DIMS
 #undef PAGED_SPLIT
   return 0;
 }
@@ -504,8 +560,7 @@ extern "C" int paged_decode_attention_launch(const void* q, const void* k_pages,
                                              int B, int Hkv, int NB, int BS, int max_blocks,
                                              int n_splits, int g, int D, int dtype,
                                              void* stream) {
-  if (B <= 0 || Hkv <= 0 || Hkv > 65535 || g < 1 || g > kMaxG || BS < 1 || BS > kMaxBS ||
-      max_blocks < 1)
+  if (B <= 0 || Hkv <= 0 || Hkv > 65535 || g < 1 || BS < 1 || BS > kMaxBS || max_blocks < 1)
     return (int)cudaErrorInvalidValue;
   const int* t = static_cast<const int*>(tables);
   const int* l = static_cast<const int*>(lengths);
@@ -515,14 +570,16 @@ extern "C" int paged_decode_attention_launch(const void* q, const void* k_pages,
   if (D == DIM)                                                                             \
     return (int)launch_group<T, DIM>(q, k_pages, v_pages, t, l, out, ws, B, Hkv, NB, BS,    \
                                      max_blocks, n_splits, g, s);
+#define PAGED_DISPATCH_DIMS(T)                                                        \
+  PAGED_DISPATCH(T, 16) PAGED_DISPATCH(T, 32) PAGED_DISPATCH(T, 48) PAGED_DISPATCH(T, 64) \
+  PAGED_DISPATCH(T, 80) PAGED_DISPATCH(T, 96) PAGED_DISPATCH(T, 128) PAGED_DISPATCH(T, 256)
   if (dtype == 0) {
-    PAGED_DISPATCH(float, 16) PAGED_DISPATCH(float, 32)
-    PAGED_DISPATCH(float, 64) PAGED_DISPATCH(float, 128)
+    PAGED_DISPATCH_DIMS(float)
   }
   if (dtype == 1) {
-    PAGED_DISPATCH(__nv_bfloat16, 16) PAGED_DISPATCH(__nv_bfloat16, 32)
-    PAGED_DISPATCH(__nv_bfloat16, 64) PAGED_DISPATCH(__nv_bfloat16, 128)
+    PAGED_DISPATCH_DIMS(__nv_bfloat16)
   }
+#undef PAGED_DISPATCH_DIMS
 #undef PAGED_DISPATCH
   return (int)cudaErrorInvalidValue;
 }

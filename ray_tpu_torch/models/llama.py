@@ -42,6 +42,7 @@ from ray_tpu_torch.ops.flash_attention import flash_attention
 from ray_tpu_torch.ops.paged_attention import paged_decode_attention
 
 NEG_INF = -1e30
+FLASH_MIN_SEQ = 1024  # auto_attention sends causal attention at S >= this to flash
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +63,18 @@ class LlamaConfig:
     # "full": recompute the whole block in the backward; "dots": keep the
     # weight products (aten.mm outputs) and recompute the rest
     remat_policy: str = "full"
+
+    def __post_init__(self):
+        # the flash kernels take head dims up to 128; a model that
+        # auto_attention could send to them (a causal sequence of
+        # FLASH_MIN_SEQ tokens fits max_seq_len) is refused here, not at the
+        # first kernel call. Serving at shorter context takes any head dim
+        # the paged kernel takes.
+        if self.hd > 128 and self.max_seq_len >= FLASH_MIN_SEQ:
+            raise NotImplementedError(
+                f"head dim {self.hd} > 128 at max_seq_len {self.max_seq_len} >= "
+                f"{FLASH_MIN_SEQ}: the flash kernels take head dims up to 128 (ROADMAP "
+                "queue 3 item 1)")
 
     @property
     def hd(self) -> int:
@@ -279,7 +292,7 @@ def auto_attention(q, k, v, causal: bool = True):
     """The flash kernels for causal attention at S >= 1024 on a CUDA tensor,
     dense attention otherwise. The crossover is the reference's, chosen on a
     TPU; it is not measured on an H100 yet."""
-    if causal and q.is_cuda and q.shape[1] >= 1024:
+    if causal and q.is_cuda and q.shape[1] >= FLASH_MIN_SEQ:
         return flash_attention(q, k, v, causal=True)
     return attention(q, k, v, causal=causal)
 

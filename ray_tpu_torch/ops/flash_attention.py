@@ -22,12 +22,15 @@ lse and delta ``[B, Hq, S]`` float32. The kernels read q/k/v/dO through
 their strides, so the model's tensors go in without a copy, and mask the
 ragged sequence edge themselves: no KV repeat and no sequence padding.
 
-The kernels are built for head dims 64 and 128. Any other multiple of 8 up
-to 128 is zero-padded to the next of the two (``pad_head_dim``, one copy of
+The kernels are built for head dims 64 and 128. Any other head dim up to
+128 is zero-padded to the next of the two (``pad_head_dim``, one copy of
 each input) and the outputs are sliced back: zero columns leave Q K^T
 unchanged and give zero columns of O, dQ, dK and dV, so the result is exact
 as long as the scale stays 1/sqrt of the caller's head dim, which the
-launchers are given.
+launchers are given. Head dims above 128 are not taken (ROADMAP queue 3
+item 1: the dK/dV kernel keeps two 16 x D float32 accumulators a lane-row
+in registers, 256 a thread at D 256), and ``models.llama.LlamaConfig``
+refuses such a model up front where ``auto_attention`` could send it here.
 
 Each of ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` runs its
 kernel on CUDA tensors and raises on anything the kernel cannot take; CPU
@@ -156,9 +159,9 @@ def _check(name, q, k, v, *same_as_q):
     for t in same_as_q:
         if t.shape != q.shape:
             raise ValueError(f"{name}: dO {tuple(t.shape)} does not match q {tuple(q.shape)}")
-    if not 0 < D <= _KERNEL_HEAD_DIMS[-1] or D % 8:
-        raise ValueError(f"{name}: head dim {D} must be a multiple of 8 up to "
-                         f"{_KERNEL_HEAD_DIMS[-1]}")
+    if not 0 < D <= _KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(f"{name}: head dim {D} must be in 1..{_KERNEL_HEAD_DIMS[-1]} "
+                         f"(ROADMAP queue 3 item 1)")
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"{name}: Hq {Hq} is not a multiple of Hkv {Hkv}")
     if Hq > 65535 or B > 65535:

@@ -20,9 +20,25 @@ anything it cannot take; CPU tensors go to ``paged_decode_attention_ref``,
 the same computation in plain PyTorch. ``launches`` counts wrapper calls
 that launched the kernel pair. It reads nothing back from the card: the
 number of splits comes from the table's width, not from ``lengths``.
-The kernel takes head dims 16, 32, 64 and 128, up to 8 query heads per kv
-head and pages of 1 to 64 tokens; ``check_shape`` raises on the rest, so an
-engine can refuse a model up front with the kernel's own message.
+
+Shapes: the kernel is built for head dims 16, 32, 48, 64, 80, 96, 128 and
+256 (``check_shape`` raises on any other, so an engine can refuse a model
+up front with the kernel's own message), any group and any page size:
+
+- a group above 8 query heads a kv head is cut into chunks of at most 8 on
+  the kernel's grid (``Hkv * n_chunks`` CTAs along y, one launch pair),
+  rather than by the wrapper launching the kernel once a chunk over slices
+  of ``q.view(B, Hkv, g, D)``: the slices are not contiguous, so each launch
+  would copy its q chunk in and its output out, and a group of 16 or 32
+  would cost 2 or 4 launch pairs where the split tile already costs two.
+  On the grid q and out are read and written in place and registers stay
+  those of a group of 8; each chunk's CTAs read the kv head's pages again,
+  mostly from L2.
+- a page above 64 tokens is served as ``r`` contiguous sub-pages of the
+  largest size at most 64 that divides it (``as_sub_pages``): the pool
+  ``[Hkv, NB, BS, D]`` is viewed as ``[Hkv, NB * r, BS / r, D]`` without a
+  copy and table entry ``t`` becomes ``t * r + j``, one small int32 op (one
+  elementwise launch) a call; the kernel itself does not change.
 """
 
 from __future__ import annotations
@@ -43,9 +59,9 @@ launches = 0  # kernel launches by paged_decode_attention, for path checks
 _launches_lock = threading.Lock()
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 128)
-_MAX_GROUP = 8
-_MAX_BLOCK_SIZE = 64
+_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 128, 256)
+_MAX_GROUP = 8  # query heads one CTA serves; a larger group is cut into chunks
+_MAX_BLOCK_SIZE = 64  # tokens of a page the kernel reads; larger pages are cut
 
 
 def paged_decode_attention_ref(q, k_pages, v_pages, tables, lengths):
@@ -73,16 +89,28 @@ def paged_decode_attention_ref(q, k_pages, v_pages, tables, lengths):
 
 
 def paged_decode_attention_split_ref(q, k_pages, v_pages, tables, lengths, pages_per_split):
-    """The kernel's split and merge in plain PyTorch: the keys of each row cut
-    into runs of ``pages_per_split`` pages, each live run's float32 partial
-    (m, l, acc) with the reference's rules, and the merge
-    out = sum_s e^(m_s - m*) acc_s / max(sum_s e^(m_s - m*) l_s, 1e-30) over
-    the live runs, m* = max_s m_s. A run is live when its first page holds a
-    position < lengths[b]; a row with none gives zeros."""
+    """The kernel's split and merge in plain PyTorch: the query heads of each
+    kv head cut into chunks of at most ``_MAX_GROUP`` (one CTA each), the
+    keys of each row cut into runs of ``pages_per_split`` pages, each live
+    run's float32 partial (m, l, acc) with the reference's rules, and the
+    merge out = sum_s e^(m_s - m*) acc_s / max(sum_s e^(m_s - m*) l_s, 1e-30)
+    over the live runs, m* = max_s m_s. A run is live when its first page
+    holds a position < lengths[b]; a row with none gives zeros."""
     B, Hq, D = q.shape
-    Hkv, _, BS, _ = k_pages.shape
-    max_blocks = tables.shape[1]
+    Hkv = k_pages.shape[0]
     g = Hq // Hkv
+    q4 = q.reshape(B, Hkv, g, D)
+    out = [_split_ref_chunk(q4[:, :, h0:h0 + _MAX_GROUP], k_pages, v_pages, tables, lengths,
+                            pages_per_split) for h0 in range(0, g, _MAX_GROUP)]
+    return torch.cat(out, dim=2).reshape(B, Hq, D).to(q.dtype)
+
+
+def _split_ref_chunk(q4, k_pages, v_pages, tables, lengths, pages_per_split):
+    """One chunk of query heads, q4 [B, Hkv, gc, D]: the split partials and
+    their merge, float32 [B, Hkv, gc, D]."""
+    B, Hkv, _, D = q4.shape
+    BS = k_pages.shape[2]
+    max_blocks = tables.shape[1]
     n_splits = -(-max_blocks // pages_per_split)
     T = pages_per_split * BS
     pad = n_splits * pages_per_split - max_blocks  # the last run's missing pages
@@ -93,9 +121,8 @@ def paged_decode_attention_split_ref(q, k_pages, v_pages, tables, lengths, pages
         return x.reshape(B, Hkv, n_splits, T, D)
 
     k, v = runs(k_pages), runs(v_pages)
-    q4 = q.reshape(B, Hkv, g, D).float()
-    s = torch.einsum("bhgd,bhstd->bhgst", q4, k) * (1.0 / math.sqrt(D))
-    kpos = torch.arange(n_splits * T, device=q.device).reshape(n_splits, T)
+    s = torch.einsum("bhgd,bhstd->bhgst", q4.float(), k) * (1.0 / math.sqrt(D))
+    kpos = torch.arange(n_splits * T, device=q4.device).reshape(n_splits, T)
     lens = lengths.long()[:, None, None, None, None]
     s = torch.where(kpos < torch.clamp(lens, max=max_blocks * BS), s, NEG_INF)
     m = s.amax(dim=-1)                                    # [B, Hkv, g, n_splits]
@@ -103,27 +130,55 @@ def paged_decode_attention_split_ref(q, k_pages, v_pages, tables, lengths, pages
     p = torch.exp(s - (m * alive)[..., None]) * alive[..., None]
     l = p.sum(dim=-1)
     acc = torch.einsum("bhgst,bhstd->bhgsd", p, v)
-    live = (torch.arange(n_splits, device=q.device) * T)[None, :] < lengths.long()[:, None]
+    live = (torch.arange(n_splits, device=q4.device) * T)[None, :] < lengths.long()[:, None]
     live = live[:, None, None, :]                         # [B, 1, 1, n_splits]
     m = torch.where(live, m, NEG_INF)
     m_star = m.amax(dim=-1, keepdim=True)
     row_alive = (m_star > NEG_INF / 2).float()
     w = torch.exp(m - m_star * row_alive) * row_alive * live.float()
-    out = (w[..., None] * acc).sum(dim=-2) / torch.clamp((w * l).sum(dim=-1), min=1e-30)[..., None]
-    return out.reshape(B, Hq, D).to(q.dtype)
+    return (w[..., None] * acc).sum(dim=-2) / torch.clamp((w * l).sum(dim=-1),
+                                                          min=1e-30)[..., None]
 
 
 def check_shape(Hq, Hkv, D, block_size):
     """Raise ValueError unless the kernel takes this head dim, group
-    (Hq // Hkv) and page size."""
+    (Hq // Hkv, any whole number) and page size (any)."""
     if D not in _HEAD_DIMS:
         raise ValueError(f"paged_decode_attention: head dim {D} not in {_HEAD_DIMS}")
-    if Hkv < 1 or Hq % Hkv or not 1 <= Hq // Hkv <= _MAX_GROUP:
-        raise ValueError(f"paged_decode_attention: Hq {Hq} must be 1..{_MAX_GROUP} "
+    if Hkv < 1 or Hq < Hkv or Hq % Hkv:
+        raise ValueError(f"paged_decode_attention: Hq {Hq} must be a whole number of "
                          f"times Hkv {Hkv}")
-    if not 1 <= block_size <= _MAX_BLOCK_SIZE:
-        raise ValueError(f"paged_decode_attention: block size {block_size} must be in "
-                         f"1..{_MAX_BLOCK_SIZE}")
+    if block_size < 1:
+        raise ValueError(f"paged_decode_attention: block size {block_size} must be >= 1")
+
+
+def sub_page_size(block_size: int) -> int:
+    """The page size the kernel reads a ``block_size`` page as: the largest
+    divisor of ``block_size`` that is at most 64 (itself up to 64)."""
+    return next(d for d in range(min(block_size, _MAX_BLOCK_SIZE), 0, -1)
+                if block_size % d == 0)
+
+
+def as_sub_pages(k_pages, v_pages, tables):
+    """Pages of ``BS`` tokens as ``r = BS / sub_page_size(BS)`` contiguous
+    sub-pages each: the pools viewed as ``[Hkv, NB * r, BS / r, D]`` (no
+    copy) and each table entry ``t`` replaced by ``t * r .. t * r + r - 1``,
+    so ``tables`` [B, max_blocks] becomes [B, max_blocks * r]. The inputs
+    themselves when ``r`` is 1."""
+    Hkv, NB, BS, D = k_pages.shape
+    sub = sub_page_size(BS)
+    r = BS // sub
+    if r == 1:
+        return k_pages, v_pages, tables
+    j = _sub_page_offsets(r, tables.dtype, tables.device)
+    sub_tables = torch.add(j, tables[:, :, None], alpha=r).reshape(tables.shape[0], -1)
+    return (k_pages.view(Hkv, NB * r, sub, D), v_pages.view(Hkv, NB * r, sub, D), sub_tables)
+
+
+@functools.lru_cache(maxsize=None)
+def _sub_page_offsets(r: int, dtype, device) -> torch.Tensor:
+    """0 .. r - 1, made once per device: the transform is then one launch."""
+    return torch.arange(r, dtype=dtype, device=device)
 
 
 def _check(q, k_pages, v_pages, tables, lengths):
@@ -168,8 +223,9 @@ def _split_pages(lib, block_size, head_dim, dtype) -> int:
 
 
 def pages_per_split(block_size, head_dim, dtype) -> int:
-    """Pages one CTA of the kernel takes at this page size, head dim and
-    dtype (builds the kernel if it is not built)."""
+    """Pages one CTA of the kernel takes at this page size (at most 64: a
+    larger page is read as ``sub_page_size`` pages), head dim and dtype
+    (builds the kernel if it is not built)."""
     return _split_pages(_build.load("paged_attention"), block_size, head_dim, dtype)
 
 
@@ -182,11 +238,12 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths):
     if not q.is_cuda:
         return paged_decode_attention_ref(q, k_pages, v_pages, tables, lengths)
     _check(q, k_pages, v_pages, tables, lengths)
+    out = torch.empty_like(q)
+    if q.shape[0] == 0:
+        return out
+    k_pages, v_pages, tables = as_sub_pages(k_pages, v_pages, tables)
     B, Hq, D = q.shape
     Hkv, NB, BS, _ = k_pages.shape
-    out = torch.empty_like(q)
-    if B == 0:
-        return out
     lib = _build.load("paged_attention")
     max_blocks = tables.shape[1]
     n_splits = -(-max_blocks // _split_pages(lib, BS, D, q.dtype))

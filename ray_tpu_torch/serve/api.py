@@ -1,6 +1,7 @@
 """serve's public calls and its HTTP ingress (the in-process part of
 ray_tpu/serve/api.py): ``run``, ``get_deployment_handle``, ``delete``,
-``status``, ``shutdown`` and ``start_http_proxy``.
+``status``, ``shutdown``, ``start_http_proxy`` and ``start_grpc_proxy``
+(``serve/grpc_ingress.py``; it imports ``grpc`` only when called).
 
 The ingress is the standard library's ``http.server.ThreadingHTTPServer``
 (one daemon thread per connection), with the reference's behavior: a JSON
@@ -34,7 +35,8 @@ from ray_tpu_torch.serve.controller import (CONTROLLER_NAME, REPLICA_START_TIMEO
 from ray_tpu_torch.serve.deployment import Application
 from ray_tpu_torch.serve.openai_api import OPENAI_DEPLOYMENT_NAMES
 
-_state: dict = {"controller": None, "proxy": None, "routes": {}, "runtime": None}
+_state: dict = {"controller": None, "proxy": None, "grpc_proxy": None, "routes": {},
+                "runtime": None}
 _lock = threading.Lock()
 
 # OpenAI surface: subpath under a route -> (method, streaming method)
@@ -53,10 +55,11 @@ def _get_or_create_controller():
     with _lock:
         if _state["runtime"] is not rt:
             # a new runtime: the cached handles point into the old one, so
-            # stop the old proxy and release its port
-            if _state["proxy"] is not None:
-                _state["proxy"].stop()
-            _state.update(controller=None, proxy=None, routes={}, runtime=rt)
+            # stop the old proxies and release their ports
+            for key in ("proxy", "grpc_proxy"):
+                if _state[key] is not None:
+                    _state[key].stop()
+            _state.update(controller=None, proxy=None, grpc_proxy=None, routes={}, runtime=rt)
         if _state["controller"] is None:
             _state["controller"] = ray_tpu_torch.remote(
                 num_cpus=0, max_concurrency=16)(ServeController).options(
@@ -108,14 +111,20 @@ def status() -> dict:
 
 
 def shutdown() -> None:
-    """Stop the proxy (its port is free again when this returns), every SLO
-    autoscaler's loop and every batcher's pending flush, delete every
-    deployment and stop the controller."""
+    """Stop the front door's ingresses and the proxies (their ports are free
+    again when this returns), every SLO autoscaler's loop and every
+    batcher's pending flush, delete every deployment and stop the
+    controller."""
+    from ray_tpu_torch.serve.front_door import stop_front_door
+
+    stop_front_door()
     with _lock:
-        proxy, controller = _state["proxy"], _state["controller"]
-        _state.update(controller=None, proxy=None, routes={})
-    if proxy is not None:
-        proxy.stop()
+        proxies = [_state["proxy"], _state["grpc_proxy"]]
+        controller = _state["controller"]
+        _state.update(controller=None, proxy=None, grpc_proxy=None, routes={})
+    for proxy in proxies:
+        if proxy is not None:
+            proxy.stop()
     autoscale.stop_all()
     batching.stop_all()
     multiplex.shutdown()
@@ -159,12 +168,17 @@ def _json_safe(result):
 
 class HttpProxy:
     """The HTTP ingress. ``port=0`` takes a free port from the OS; ``port``
-    then reads back the one bound. ``admission(deployment) -> (admitted,
-    shed reason)`` (an ``AdmissionGate.try_admit``, say) runs before a
-    request is admitted to anatomy; it may block while the gate queues."""
+    then reads back the one bound. ``route_lookup(path) -> (prefix, handle)``
+    (``(None, None)``: no route) replaces ``serve.run``'s route table, as the
+    front door's ingresses read theirs from the routing epoch.
+    ``admission(deployment) -> (admitted, shed reason)`` (an
+    ``AdmissionGate.try_admit``, say) runs before a request is admitted to
+    anatomy; it may block while the gate queues."""
 
-    def __init__(self, host: str = "127.0.0.1", port: int = 8000, admission=None):
+    def __init__(self, host: str = "127.0.0.1", port: int = 8000, route_lookup=None,
+                 admission=None):
         proxy = self
+        self._route_lookup = route_lookup or _match_route
         self._admission = admission
 
         class Handler(BaseHTTPRequestHandler):
@@ -197,7 +211,7 @@ class HttpProxy:
 
     def _handle(self, req: BaseHTTPRequestHandler) -> None:
         path = req.path.split("?", 1)[0]
-        route, handle = _match_route(path)
+        route, handle = self._route_lookup(path)
         if handle is None:
             return self._reply(req, 404, {"error": f"no route for {path}"})
         try:
@@ -292,3 +306,16 @@ def start_http_proxy(host: str = "127.0.0.1", port: int = 8000,
         if _state["proxy"] is None:
             _state["proxy"] = HttpProxy(host, port, admission=admission)
         return _state["proxy"]
+
+
+def start_grpc_proxy(host: str = "127.0.0.1", port: int = 9000):
+    """Start the gRPC ingress beside HTTP (once per serve session), over
+    ``serve.run``'s route table; ``port=0`` takes a free port, which the
+    proxy's ``port`` reads back. Needs the ``grpc`` package."""
+    from ray_tpu_torch.serve.grpc_ingress import GrpcProxy
+
+    _get_or_create_controller()  # binds the proxy to this runtime
+    with _lock:
+        if _state["grpc_proxy"] is None:
+            _state["grpc_proxy"] = GrpcProxy(host, port)
+        return _state["grpc_proxy"]

@@ -29,17 +29,27 @@ ray_tpu/serve/controller.py).
   dequeue on the body's ledger (``serve.anatomy``); the controller declares
   each deployment's ``slo_ttft_ms`` and retires a removed replica's
   scoreboard entries.
+- Routing epochs: versioned snapshots of the routing state (routes, each
+  deployment's replicas, node map, router kind, SLO and service-time hint,
+  the ingress registry) published on the retained ``"serve:epochs"``
+  channel at deploy, delete, ingress (un)registration, a health drop, and
+  from the reconcile loop when the routing fingerprint changed or
+  EPOCH_REFRESH_S passed. The front door's ingresses route from them and
+  never call the controller on the request path; ``call_counts`` counts
+  the calls of each public method, so a run can show it.
 
-Still to port (ROADMAP queue 1 items 3.6 and 4): the KV checkpoint of the
-controller, routing epochs and ingress registration, node probes and
-drain, and compiled dispatch. In one process the HTTP proxy reads
+Still to port (ROADMAP queue 1 items 4 and 8): the KV checkpoint of the
+controller, node probes and drain, and compiled dispatch (an epoch's
+``"compiled"`` is always False). In one process the HTTP proxy reads
 ``serve.api``'s route table, so there is no route publication to
 subscribe to, and every replica is on node ``"head"``.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
 import inspect
 import logging
 import random
@@ -165,6 +175,23 @@ def _kill(replica) -> None:
         pass
 
 
+def _count_calls(cls):
+    """Wrap each public method of ``cls`` so that ``call_counts()`` reports
+    how many times it ran, whoever called it."""
+    for name, fn in list(vars(cls).items()):
+        if name.startswith("_") or name == "call_counts" or not inspect.isfunction(fn):
+            continue
+
+        def counted(self, *args, _fn=fn, _name=name, **kwargs):
+            with self._calls_lock:
+                self._calls[_name] += 1
+            return _fn(self, *args, **kwargs)
+
+        setattr(cls, name, functools.wraps(fn)(counted))
+    return cls
+
+
+@_count_calls
 class ServeController:
     """The control-plane actor."""
 
@@ -180,6 +207,12 @@ class ServeController:
     # stopped once its last request has returned, or after the timeout
     DRAIN_MIN_S = 1.0
     GRACEFUL_SHUTDOWN_TIMEOUT_S = 20.0
+    # routing epochs: the controller owns desired state and pushes versioned
+    # snapshots of the routing state; ingresses read them from a local
+    # cache. The heartbeat republish refreshes soft hints (the service-time
+    # EWMA of the admission predictors) when membership did not change.
+    EPOCH_CHANNEL = "serve:epochs"
+    EPOCH_REFRESH_S = 5.0
 
     def __init__(self):
         self._deployments: dict[str, _DeploymentState] = {}
@@ -188,8 +221,19 @@ class ServeController:
         self._health_probes: dict[str, tuple] = {}  # replica -> (ref, sent_ts)
         self._health_last: dict[str, float] = {}  # replica -> when its last probe went
         self._draining: list = []  # (deployment, replica, removed at) after a scale-down
+        self._ingress: dict[str, tuple] = {}  # ingress key -> (host, port)
         self._lock = threading.Lock()
         self._reconcile_lock = threading.Lock()  # serializes reconcile passes
+        self._epoch_lock = threading.Lock()  # serializes epoch build and publish
+        # seeded from the wall clock so versions rise across controller
+        # generations: the channel retains the last doc, and a new controller
+        # counting from 1 would lose the version gate to its predecessor's
+        self._epoch_version = int(time.time() * 1000)
+        self._epoch_fp = None
+        self._epoch_pub_t = 0.0
+        self._epoch_last: dict | None = None
+        self._calls: collections.Counter = collections.Counter()
+        self._calls_lock = threading.Lock()
         self._stop = threading.Event()
         self._runtime = get_runtime()  # the loops end with it
         self._threads = [
@@ -230,6 +274,7 @@ class ServeController:
         # declare the deployment's TTFT SLO to the anatomy scoreboard
         anatomy.set_slo(name, deployment.config.slo_ttft_ms)
         self._reconcile_once()
+        self._publish_epoch()
         with self._lock:
             replicas = list(st.replicas)
         rt = get_runtime()
@@ -246,12 +291,107 @@ class ServeController:
         with self._lock:
             return dict(self._routes)
 
+    def call_counts(self) -> dict:
+        """Calls of each public method so far (the front door's request path
+        must add none)."""
+        with self._calls_lock:
+            return dict(self._calls)
+
+    # ---- routing epochs: versioned snapshots over a retained channel.
+    # Subscribers ignore fields they do not know and drop versions older
+    # than the one they hold; a late subscriber gets the current epoch at
+    # once, so an ingress serves from its first request. ----
+    def _epoch_doc(self) -> dict:
+        with self._lock:
+            deployments = {}
+            for name, st in self._deployments.items():
+                reps = list(st.replicas)
+                deployments[name] = {
+                    "replicas": reps,
+                    "nodes": {r._actor_id.hex(): "head" for r in reps},
+                    "router": st.config.request_router,
+                    "compiled": False,  # compiled dispatch is not ported
+                    "slo_ttft_ms": st.config.slo_ttft_ms,
+                    "max_ongoing_requests": st.config.max_ongoing_requests,
+                    "version": st.version,
+                    "target_replicas": st.target_replicas,
+                }
+            doc = {
+                "routes": dict(self._routes),
+                "deployments": deployments,
+                "ingress": {k: list(v) for k, v in self._ingress.items()},
+                "draining": [],  # no node drains in one process
+            }
+        # the admission predictor's service-time scale, outside the lock
+        for name, ent in doc["deployments"].items():
+            ent["service_ewma_s"] = anatomy.service_estimate(name)
+        return doc
+
+    @staticmethod
+    def _epoch_fingerprint(doc: dict) -> tuple:
+        return (
+            tuple(sorted(doc["routes"].items())),
+            tuple(sorted(
+                (n, e["version"], e["target_replicas"], e["router"], e["compiled"],
+                 e["slo_ttft_ms"], tuple(sorted(e["nodes"].items())))
+                for n, e in doc["deployments"].items())),
+            tuple(sorted((k, tuple(v)) for k, v in doc["ingress"].items())),
+            tuple(doc["draining"]),
+        )
+
+    def _publish_epoch(self, force: bool = True) -> None:
+        """Build and publish the next routing epoch. ``force=False`` is the
+        reconcile loop's call: publish only when the routing fingerprint
+        changed or the heartbeat refresh is due."""
+        with self._epoch_lock:
+            doc = self._epoch_doc()
+            fp = self._epoch_fingerprint(doc)
+            now = time.monotonic()
+            if (not force and fp == self._epoch_fp
+                    and now - self._epoch_pub_t < self.EPOCH_REFRESH_S):
+                return
+            self._epoch_version += 1
+            doc["version"] = self._epoch_version
+            self._epoch_fp = fp
+            self._epoch_pub_t = now
+            self._epoch_last = doc
+            self._runtime.publisher.publish(self.EPOCH_CHANNEL, doc, retain=True)
+
+    def get_epoch(self) -> dict:
+        """The last published routing epoch (the initial sync of a consumer
+        that starts before any publish reaches it)."""
+        with self._epoch_lock:
+            last = self._epoch_last
+        if last is None:
+            self._publish_epoch()
+            with self._epoch_lock:
+                last = self._epoch_last
+        return last
+
+    # ---- the ingress registry: the front door registers each ingress it
+    # starts; the epoch's "ingress" map is what clients read ----
+    def set_ingress(self, key: str, host: str, port: int) -> None:
+        with self._lock:
+            self._ingress[key] = (host, int(port))
+        self._publish_epoch()
+
+    def remove_ingress(self, key: str) -> None:
+        with self._lock:
+            existed = self._ingress.pop(key, None) is not None
+        if existed:
+            self._publish_epoch()
+
+    def get_ingress(self) -> dict:
+        with self._lock:
+            return {k: list(v) for k, v in self._ingress.items()}
+
     def delete_deployment(self, name: str) -> None:
         with self._lock:
             st = self._deployments.pop(name, None)
             self._routes = {p: n for p, n in self._routes.items() if n != name}
             draining = [r for dep, r, _ in self._draining if dep == name]
             self._draining = [e for e in self._draining if e[0] != name]
+        self._publish_epoch()
         for r in draining:
             _kill(r)
         if st:
@@ -383,6 +523,7 @@ class ServeController:
 
     def _reconcile_tick(self) -> None:
         self._reconcile_once()
+        self._publish_epoch(force=False)  # when the routing state changed
         self._autoscale_tick()
         self._reap_drained()
 
@@ -465,6 +606,7 @@ class ServeController:
                 if cur is None or r not in cur.replicas:
                     continue
                 cur.replicas.remove(r)  # reconcile starts its replacement
+            self._publish_epoch()  # ingresses stop routing to it now
             _kill(r)
             _retire(st.config.name, [r])
 

@@ -125,11 +125,41 @@ def test_padded_head_dim_matches_unpadded_and_jax(causal, D):
     The padded columns of every output are exact zeros, and the rest agrees
     with the unpadded plain versions and with the JAX kernels (the backward
     fed JAX's lse and delta, as above)."""
+    assert tfa.kernel_head_dim(D) == 64
+    _check_padded(causal, D)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dim_off_the_multiples_of_8_is_padded_to_128(causal):
+    """D 100, not a multiple of 8, is zero-padded to 128 as the others are
+    to 64, and agrees with the unpadded plain versions and the JAX kernels."""
+    assert tfa.kernel_head_dim(100) == 128
+    _check_padded(causal, 100)
+
+
+def test_llama_config_past_head_dim_128_is_refused_at_build():
+    """A model auto_attention could send to the flash kernels (max_seq_len
+    of at least FLASH_MIN_SEQ) with a head dim above 128 raises when its
+    config is made; a shorter context, served through the paged kernel
+    only, is taken."""
+    from ray_tpu_torch.models import llama
+
+    with pytest.raises(NotImplementedError, match="queue 3 item 1"):
+        llama.LlamaConfig(hidden_size=2048, num_heads=8, num_kv_heads=4, head_dim=256)
+    with pytest.raises(NotImplementedError, match="queue 3 item 1"):
+        llama.LlamaConfig(hidden_size=256, num_heads=1, num_kv_heads=1,
+                          max_seq_len=llama.FLASH_MIN_SEQ)
+    assert llama.LlamaConfig(hidden_size=2048, num_heads=8, num_kv_heads=4, head_dim=256,
+                             max_seq_len=llama.FLASH_MIN_SEQ - 1).hd == 256
+    assert llama.LlamaConfig(hidden_size=2048, num_heads=16, head_dim=128).hd == 128
+
+
+def _check_padded(causal, D):
     B, S, Hq, Hkv = 1, 96, 4, 2  # S a multiple of the JAX kernels' block
     q, k, v, do = _inputs(B, S, Hq, Hkv, D, seed=4)
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
     Dk = tfa.kernel_head_dim(D)
-    assert Dk == 64 and tfa.pad_head_dim(tq, D) is tq
+    assert tfa.pad_head_dim(tq, D) is tq
     pq, pk, pv, pdo = (tfa.pad_head_dim(x, Dk) for x in (tq, tk, tv, tdo))
     assert pq.shape == (B, S, Hq, Dk) and not pq[..., D:].any()
     scale = 1.0 / math.sqrt(D)

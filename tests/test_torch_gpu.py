@@ -61,11 +61,16 @@ def _paged_inputs(device, dtype, B, Hkv, g, D, BS, max_blocks, lengths, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g,D,BS", [(4, 128, 16), (1, 64, 8), (8, 64, 64), (3, 128, 32),
                                     (2, 16, 4), (8, 16, 16), (4, 32, 5), (1, 32, 64),
-                                    (4, 128, 1), (2, 64, 12)])
+                                    (4, 128, 1), (2, 64, 12),
+                                    # head dims 48/80/96/256, groups above 8, pages above 64
+                                    (4, 48, 16), (2, 80, 16), (4, 96, 16), (4, 256, 16),
+                                    (8, 256, 64), (16, 128, 16), (12, 64, 16), (32, 48, 8),
+                                    (4, 128, 128), (2, 64, 96), (1, 256, 128)])
 def test_paged_kernel_matches_plain(cuda, dtype, g, D, BS):
     """Ragged rows, a dead row, a full table of at least 128 pages, and rows
     one under, at and one over the edges of the first two splits."""
-    T = pa.pages_per_split(BS, D, dtype) * BS  # tokens a split takes
+    sub = pa.sub_page_size(BS)  # a page above 64 tokens is read as sub-pages
+    T = pa.pages_per_split(sub, D, dtype) * sub  # tokens a split takes
     max_blocks = max(128, -(-(2 * T + 1) // BS))
     full = BS * max_blocks
     lengths = [1, full, 0, BS + 3, 2 * BS - 1]  # ragged, full, dead
@@ -99,12 +104,12 @@ def test_paged_kernel_needs_no_host_sync(cuda):
 
 @pytest.mark.gpu
 def test_paged_kernel_rejects_what_it_cannot_take(cuda):
-    q, k, v, tables, lengths = _paged_inputs(cuda, torch.float32, 2, 2, 2, 48, 8, 3, [3, 5])
+    q, k, v, tables, lengths = _paged_inputs(cuda, torch.float32, 2, 2, 2, 40, 8, 3, [3, 5])
     with pytest.raises(ValueError, match="head dim"):
         pa.paged_decode_attention(q, k, v, tables, lengths)
-    q, k, v, tables, lengths = _paged_inputs(cuda, torch.float32, 2, 1, 16, 64, 8, 3, [3, 5])
+    q, k, v, tables, lengths = _paged_inputs(cuda, torch.float32, 2, 2, 2, 64, 8, 3, [3, 5])
     with pytest.raises(ValueError, match="times Hkv"):
-        pa.paged_decode_attention(q, k, v, tables, lengths)
+        pa.paged_decode_attention(q[:, :3].contiguous(), k, v, tables, lengths)
     q, k, v, tables, lengths = _paged_inputs(cuda, torch.float32, 2, 2, 2, 64, 8, 3, [3, 5])
     with pytest.raises(TypeError, match="int32"):
         pa.paged_decode_attention(q, k, v, tables.long(), lengths)
@@ -209,15 +214,44 @@ def test_tiny_openai_app_over_http_on_the_card_matches_the_cpu(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("change,match", [
-    (dict(hidden_size=192), "head dim"),                  # head dim 48
-    (dict(num_heads=32, num_kv_heads=2, head_dim=16), "times Hkv"),  # group 16
-    (dict(), "block size")])                              # pages of 128 tokens
+    (dict(hidden_size=160), "head dim"),                  # head dim 40
+    (dict(head_dim=200), "head dim")])
 def test_paged_engine_refuses_what_the_kernel_cannot_take(cuda, change, match):
     cfg = dataclasses.replace(llama.LlamaConfig.tiny(), **change)
-    block_size = 16 if change else 128
     with pytest.raises(ValueError, match=match):
         PagedLLMEngine(PagedLLMConfig(model_config=cfg, max_batch_size=2, max_seq_len=128,
-                                      block_size=block_size), device=cuda)
+                                      block_size=16), device=cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("change,block_size", [
+    (dict(num_heads=16, num_kv_heads=1, head_dim=48), 96),   # group 16, pages of 96
+    (dict(head_dim=256), 128),                               # head dim 256, pages of 128
+    (dict(num_heads=8, num_kv_heads=2, head_dim=80), 16)])
+def test_wide_shape_paged_engine_on_the_card_matches_the_cpu(cuda, change, block_size):
+    """Shapes the paged kernel now takes, on LlamaConfig.tiny() widths in
+    float32: every decode step through the kernel on the card, the CPU
+    engine's greedy tokens from the same weights."""
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(), **change)
+    params = llama.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompts = [[5, 9, 13, 2, 7], [3, 3, 8], list(range(1, 40))]
+    tokens = {}
+    for device in ("cpu", cuda):
+        eng = PagedLLMEngine(PagedLLMConfig(model_config=cfg, max_batch_size=4,
+                                            max_seq_len=block_size * -(-128 // block_size),
+                                            block_size=block_size),
+                             params=_to(params, device), device=device)
+        try:
+            before = pa.launches
+            futs = [eng.generate(p, 12) for p in prompts]
+            tokens[str(device)] = [f.result(timeout=300).token_ids for f in futs]
+            steps = eng.stats()["decode_steps"]
+            launches = pa.launches - before
+        finally:
+            eng.shutdown()
+        assert steps > 0
+        assert launches == (cfg.num_layers * steps if device == cuda else 0)
+    assert tokens[str(cuda)] == tokens["cpu"]
 
 
 # ---------------------------------------------------------------- PD, speculative decoding
@@ -307,7 +341,7 @@ def test_spec_decode_draft_runs_the_kernel_at_d64_group4(cuda):
 
 @pytest.mark.gpu
 def test_spec_engine_refuses_a_draft_the_kernel_cannot_take(cuda):
-    dcfg = dataclasses.replace(llama.LlamaConfig.tiny(), hidden_size=192)  # head dim 48
+    dcfg = dataclasses.replace(llama.LlamaConfig.tiny(), hidden_size=160)  # head dim 40
     with pytest.raises(ValueError, match="head dim"):
         SpecDecodeLLMEngine(SpecDecodeConfig(model_config=llama.LlamaConfig.tiny(),
                                              draft_model_config=dcfg, max_batch_size=2,
@@ -499,7 +533,7 @@ def test_flash_dq_dead_query_rows(cuda, dtype, causal, D):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [16, 32, 96])
+@pytest.mark.parametrize("D", [16, 32, 96, 20, 100])
 def test_flash_kernels_take_padded_head_dims(cuda, dtype, causal, D):
     """Head dims the kernels are not built for run zero-padded to 64 or 128
     and sliced back, with the caller's scale: each of the three kernels
@@ -583,7 +617,7 @@ def test_flash_backward_through_function(cuda, dtype):
 
 @pytest.mark.gpu
 def test_flash_rejects_what_it_cannot_take(cuda):
-    for D in (136, 20):  # past 128, not a multiple of 8
+    for D in (136, 256):  # past 128 (ROADMAP queue 3 item 1)
         q, k, v, _ = _flash_inputs(cuda, torch.float32, 1, 16, 2, 2, D)
         with pytest.raises(ValueError, match="head dim"):
             fa.flash_fwd(q, k, v, True)

@@ -29,7 +29,8 @@ def test_no_module_imports_jax_or_ray_tpu():
                  "serve.deployment", "serve.controller", "serve.api", "serve.openai_api",
                  "serve.anatomy", "serve.admission", "serve.autoscale", "serve.kv_router",
                  "serve.batching", "serve.multiplex", "util.metrics", "util.flight_recorder",
-                 "util.timeline"):
+                 "util.timeline", "core.pubsub", "experimental.pubsub", "serve.front_door",
+                 "serve.grpc_ingress"):
         assert f"ray_tpu_torch.{name}" in modules
     script = textwrap.dedent(f"""
         import importlib, sys, threading
@@ -56,6 +57,7 @@ IN_PROCESS_ONLY = ("multiprocessing", "subprocess", "mmap", "ctypes")
     ("core", IN_PROCESS_ONLY + ("socket",)),  # the runtime opens no socket either
     ("serve", IN_PROCESS_ONLY),
     ("util", IN_PROCESS_ONLY + ("socket",)),  # metrics and rings of this process only
+    ("experimental", IN_PROCESS_ONLY + ("socket",)),  # pub/sub of this process
 ])
 def test_runtime_and_serve_stay_in_one_process(package, banned):
     """No worker process, shared memory or native library: the runtime, the
@@ -75,6 +77,44 @@ def test_runtime_and_serve_stay_in_one_process(package, banned):
                 continue
             for name in names:
                 assert name.split(".")[0] not in banned, (path.name, name)
+
+
+def _imports(tree) -> list:
+    """(module name, node) of every import statement in ``tree``."""
+    out = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out += [(a.name, node) for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            out.append((node.module or "", node))
+    return out
+
+
+def test_only_the_grpc_ingress_names_grpc_and_only_when_used():
+    """``grpc`` is imported by serve/grpc_ingress.py alone, inside the
+    functions that use it: the card machine has no grpc."""
+    namers = []
+    for path in sorted((REPO / "ray_tpu_torch").rglob("*.py")):
+        tree = ast.parse(path.read_text())
+        if any(name.split(".")[0] == "grpc" for name, _ in _imports(tree)):
+            namers.append(path.relative_to(REPO).as_posix())
+        top_level = [name for stmt in tree.body for name, _ in _imports(ast.Module([stmt], []))
+                     if not isinstance(stmt, (ast.FunctionDef, ast.ClassDef))]
+        assert "grpc" not in [n.split(".")[0] for n in top_level], path
+    assert namers == ["ray_tpu_torch/serve/grpc_ingress.py"]
+
+
+def test_serve_imports_without_grpc():
+    script = textwrap.dedent("""
+        import sys
+        sys.modules["grpc"] = None  # any import of grpc now raises
+        import ray_tpu_torch.serve
+        from ray_tpu_torch.serve import grpc_ingress, start_front_door, start_grpc_proxy
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stdout + proc.stderr
 
 
 def test_engine_without_device_raises_when_no_card(monkeypatch):

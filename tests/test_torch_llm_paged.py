@@ -176,3 +176,29 @@ def test_bf16_prefix_hit_keeps_the_bytes_in_both_engines():
     finally:
         jeng.shutdown()
         teng.shutdown()
+
+
+@pytest.mark.parametrize("block_size", [16, 96])
+def test_paged_engine_at_wide_shapes_matches_jax_engine(block_size):
+    """Shapes the paged kernel now takes: head dim 48, a group of 16 query
+    heads on one kv head, and (at 96) pages above 64 tokens. The port's
+    engine gives the JAX engine's greedy tokens on the same weights."""
+    import dataclasses
+
+    change = dict(num_heads=16, num_kv_heads=1, head_dim=48)
+    jcfg = dataclasses.replace(jl.LlamaConfig.tiny(), **change)
+    tcfg = dataclasses.replace(tl.LlamaConfig.tiny(), **change)
+    jparams = jl.init(jcfg, jax.random.PRNGKey(3))
+    tparams = tl.from_jax(jax.tree.map(np.asarray, jparams), tcfg, "cpu")
+    jeng = JaxPagedEngine(JaxPagedConfig(model_config=jcfg, max_batch_size=4, max_seq_len=192,
+                                         block_size=block_size), params=jparams)
+    teng = PagedLLMEngine(PagedLLMConfig(model_config=tcfg, max_batch_size=4, max_seq_len=192,
+                                         block_size=block_size), params=tparams, device="cpu")
+    try:
+        jfuts = [jeng.generate(p, 8) for p in PROMPTS]
+        tfuts = [teng.generate(p, 8) for p in PROMPTS]
+        for jf, tf in zip(jfuts, tfuts):
+            assert tf.result(120).token_ids == jf.result(120).token_ids
+    finally:
+        jeng.shutdown()
+        teng.shutdown()

@@ -82,3 +82,67 @@ def test_split_ref_matches_jax_kernel(pages_per_split, g, BS):
                                                 pages_per_split).numpy()
     np.testing.assert_allclose(got, ref, atol=2e-5)
     assert not got[0].any()  # length 0 gives zeros
+
+
+# ---------------------------------------------------------------- wider shapes
+@pytest.mark.parametrize("D", [48, 80, 96, 256])
+@pytest.mark.parametrize("g", [1, 4])
+def test_new_head_dims_match_jax_kernel(D, g):
+    """Head dims the kernel is now built for: the plain version and the
+    kernel's split arithmetic (runs of 2 pages) against the Pallas kernel."""
+    arrays = _inputs(g, [5, 17, 0, 32], B=4, D=D, BS=8, max_blocks=4)
+    ref, got = _both(arrays)
+    np.testing.assert_allclose(got, ref, atol=2e-5)
+    split = port.paged_decode_attention_split_ref(*(torch.from_numpy(a) for a in arrays), 2)
+    np.testing.assert_allclose(split.numpy(), ref, atol=2e-5)
+
+
+@pytest.mark.parametrize("g", [12, 16])
+def test_groups_above_eight_match_jax_kernel(g):
+    """A group above 8 (the kernel serves it in chunks of at most 8 query
+    heads a CTA, the last one zero-padded at 12): the plain version, and the
+    split arithmetic chunk by chunk, against the Pallas kernel."""
+    arrays = _inputs(g, [5, 17, 32], D=16, BS=8, max_blocks=4)
+    ref, got = _both(arrays)
+    np.testing.assert_allclose(got, ref, atol=2e-5)
+    split = port.paged_decode_attention_split_ref(*(torch.from_numpy(a) for a in arrays), 1)
+    np.testing.assert_allclose(split.numpy(), ref, atol=2e-5)
+
+
+@pytest.mark.parametrize("BS, sub", [(128, 64), (96, 48), (200, 50), (67, 1), (64, 64)])
+def test_sub_page_size(BS, sub):
+    assert port.sub_page_size(BS) == sub
+
+
+@pytest.mark.parametrize("BS", [96, 128])
+@pytest.mark.parametrize("g", [2, 16])
+def test_large_pages_through_sub_pages_match_jax_kernel(BS, g):
+    """Pages above 64 tokens: the JAX kernel on the pages as they are, the
+    port's plain version on them too, and on the sub-page view and table
+    that the wrapper hands the kernel (``as_sub_pages``), plain and split."""
+    arrays = _inputs(g, [1, BS, BS + 7, 3 * BS], B=4, D=16, BS=BS, max_blocks=3)
+    ref, got = _both(arrays)
+    np.testing.assert_allclose(got, ref, atol=2e-5)
+    q, k, v, tables, lengths = (torch.from_numpy(a) for a in arrays)
+    sk, sv, st = port.as_sub_pages(k, v, tables)
+    r = BS // port.sub_page_size(BS)
+    assert sk.shape == (k.shape[0], k.shape[1] * r, BS // r, 16)
+    assert sk.data_ptr() == k.data_ptr() and st.shape == (4, 3 * r) and st.dtype == torch.int32
+    sub = port.paged_decode_attention_ref(q, sk, sv, st, lengths)
+    np.testing.assert_allclose(sub.numpy(), ref, atol=2e-5)
+    split = port.paged_decode_attention_split_ref(q, sk, sv, st, lengths, 2)
+    np.testing.assert_allclose(split.numpy(), ref, atol=2e-5)
+
+
+def test_check_shape_takes_the_new_shapes():
+    for D in (16, 32, 48, 64, 80, 96, 128, 256):
+        port.check_shape(32, 8, D, 16)
+    port.check_shape(32, 2, 128, 16)   # group 16
+    port.check_shape(32, 1, 64, 128)   # group 32, pages of 128
+    port.check_shape(8, 8, 64, 96)
+    with pytest.raises(ValueError, match="head dim"):
+        port.check_shape(8, 2, 40, 16)
+    with pytest.raises(ValueError, match="times Hkv"):
+        port.check_shape(6, 4, 64, 16)
+    with pytest.raises(ValueError, match="block size"):
+        port.check_shape(8, 2, 64, 0)

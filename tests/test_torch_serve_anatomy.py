@@ -23,6 +23,7 @@ import ray_tpu_torch as rt
 from ray_tpu.serve import anatomy as ref_anatomy
 from ray_tpu.util import flight_recorder as ref_flight
 from ray_tpu.util import metrics as ref_metrics
+from ray_tpu.util import timeline as ref_timeline
 from ray_tpu_torch import serve
 from ray_tpu_torch.serve import anatomy
 from ray_tpu_torch.util import flight_recorder, metrics
@@ -69,6 +70,10 @@ def _scenario(mod, seed: int, tag: str, monkeypatch) -> dict:
     monkeypatch.setattr(mod, "now_wall", lambda: float(next(clock)))
     monkeypatch.setattr(mod, "_SETTLE_S", 0.0)
     monkeypatch.setattr(uuid, "uuid4", lambda: uuid.UUID(int=next(ids) << 64))
+    # the reference folds in the clock offsets its process learned from
+    # other nodes' heartbeats, which an earlier test in the same worker may
+    # have left; one node, as the port is, has none
+    monkeypatch.setattr(ref_timeline, "clock_offsets", lambda: {})
     mod.mark_head()
     deps = [f"{tag}-a", f"{tag}-b"]
     mod.set_slo(deps[0], 40.0)
