@@ -77,6 +77,22 @@
    at the shapes it was widened to (head dims 48, 80, 96 and 256, a group
    of 16, pages of 128 tokens), in bf16 and float32, each against its plain
    version and timed beside SDPA and its byte bound.
+   Then the PD deployments over HTTP on the same weights: deploy_pd_app
+   (one PDPrefill and one PDDecode replica behind the PDIngress controller)
+   answers the 8 prompts at once with the plain engine's tokens (near-tie
+   rule) from two different replicas, the decode replica's engine through
+   the paged kernel at every step, no handoff left live on either side;
+   one more handoff by hand gives its bytes and host-card copy times; then
+   the co-located build_pd_deployment answers the same. Then DP attention:
+   a DPAttentionGroup of 2 Llama-3-8B ranks answers one request while the
+   other rank dummy-decodes in every lockstep round, then 4 at once (the
+   plain engine's tokens, near-tie rule), every decode step and dummy
+   decode through the paged kernel; rounds and ms per round are logged.
+   After the widened shapes, the paged pair at head dims between the built
+   ones (36, 40, 112, 200; each on the kernel of the next built head dim
+   with its own at run time), checked and timed the same way, and a
+   4-layer model of 32/8 heads of 40 served by PagedLLMEngine with every
+   decode step through the kernel.
 5. Flash kernels: forward, dQ and dK/dV each against its plain version
    (bf16 and float32; causal and not; GQA 1 and 4 at head dim 64 and 128,
    and at 16 and 96, which the wrappers zero-pad to 64 and 128; ragged S 1,
@@ -91,7 +107,15 @@
    flash kernels against dense attention from the same parameters; the loss
    and the wq/wk/wv gradients through the kernels against plain float32
    attention at the initial parameters and after the 5 steps; and a profile
-   of one train step.
+   of one train step. Then flash at head dim 256: Llama-3.2-1B's widths as
+   8 query and 2 kv heads of 256, each bf16 kernel against its plain
+   version at B 4 x S 2048 causal, D 192 (zero-padded to 256) and float32
+   at short S, the bf16 kernels timed beside SDPA and the bound (the D 64
+   rows' bound: Hq x D is the same), their registers and spills from
+   ptxas; then 5 train steps of that config cut to 4 layers at B 2 x S
+   2048, every step through the three kernels, the grad norm and wq/wk/wv
+   gradients after them against dense attention and the loss and wq/wk/wv
+   against plain float32 attention.
 7. Other model families: MoE at Mixtral-8x7B widths cut to 4 of its 32
    layers (B 1 x S 2048) and ViT-L/16 whole (batch 64), each loss_fn and its
    backward in bf16, timed, with the gap to a float32 copy of the same
@@ -204,6 +228,20 @@ TRAIN_F32_REF_TOL = {
     "initial": {"loss": 8e-5, "wq": 7e-2, "wk": 7e-2, "wv": 5.5e-2},
     "after 5 steps": {"loss": 2.1e-5, "wq": 3.1e-2, "wk": 2.7e-2, "wv": 9.2e-3},
 }
+# the head-dim-256 train path (flash_d256_phase) is held to the grad norm
+# and wq/wk/wv limits above after its 5 steps; its loss gap to dense
+# attention is logged against TRAIN_LOSS_REL_TOL but not held to it. That
+# limit was read off the 16-layer 1B (loss 9.37 after its steps); the
+# 4-layer models fit the batch (loss 12.3 -> 3.7) and read more with the
+# kernels that passed it too: 2.3e-5 at D 64 after 5 steps, 1.63e-4 at D
+# 256, where dense attention (scores rounded to bf16) is the path farther
+# from a float32 copy of the model (2.0e-4 against the kernels' 3.9e-5;
+# scripts/torch_attention_agreement.py on the H100). So the D 256 path's
+# loss and wq/wk/wv are held to plain float32 attention instead, at about
+# 2.5 times the first H100 reading (6.5e-5, 1.12e-2, 1.05e-2, 3.64e-3), as
+# TRAIN_F32_REF_TOL holds the 1B's; the same 4-layer model at D 64 read
+# 5.6e-5, 1.16e-2, 8.8e-3, 3.3e-3 there.
+D256_F32_REF_TOL = {"after 5 steps": {"loss": 1.6e-4, "wq": 2.8e-2, "wk": 2.6e-2, "wv": 9.1e-3}}
 # the tiny serving check: LlamaConfig.tiny() at pages of 4 tokens
 TINY_BLOCK, TINY_NEW_TOKENS = 4, 12
 PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024)
@@ -248,6 +286,24 @@ FLASH_DTYPES = (torch.bfloat16, torch.float32)
 PAGED_KERNELS = ("paged_split_kernel", "paged_combine_kernel")  # the paged pair, in launch order
 # head dims the paged pair was widened to take (besides 16, 32, 64, 128)
 PAGED_NEW_HEAD_DIMS = (48, 80, 96, 256)
+# head dims between the built ones, run on the next one up with the head dim
+# given at run time: rows of whole 16-byte chunks (40, 112, 200) and one of
+# 8-byte pieces (36, not a multiple of 8)
+PAGED_ANY_HEAD_DIMS = (40, 112, 200, 36)
+# a small-depth model at head dim 40 served by PagedLLMEngine on the card
+# (32 query and 8 kv heads of 40: hidden 1280; no preset has this head dim)
+D40_LAYERS, D40_HIDDEN, D40_MLP, D40_VOCAB = 4, 1280, 3584, 32000
+# flash at head dim 256: Llama-3.2-1B's widths with 8 query and 2 kv heads of
+# 256 (the same q, k and v widths as its 32 and 8 heads of 64), checked and
+# timed at B 4 x S 2048 causal; D 192 (zero-padded to 256) checked at
+# FLASH_D192_SHAPE and float32 at FLASH_D256_F32_SHAPES; then 5 train steps of
+# that config cut to D256_LAYERS layers at B 2 x S 2048
+FLASH_D256_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 8, 2, 256)
+FLASH_D192_SHAPE = (2, 1000, 8, 2, 192)
+FLASH_D256_F32_SHAPES = [(2, 300, 8, 2, 256), (1, 129, 4, 4, 192)]
+D256_LAYERS, D256_BATCH = 4, 2
+# PD app and DP attention on the main path's weights
+DP_SIZE, DP_BURST = 2, 4
 FLASH_OUTPUTS = {"flash_fwd": ("o",), "flash_bwd_dq": ("dq",), "flash_bwd_dkv": ("dk", "dv")}
 FLASH_KERNELS = {  # name: (TPU kernel it replaces, tensor-core products per (q, k) pair,
     #                    the CUDA kernel that runs at the trainer's shapes)
@@ -343,10 +399,13 @@ def build_phase(card: str) -> None:
                        ("flash_bwd_dq_bf16_kernel", lib.flash_bwd_dq_smem_bytes),
                        ("flash_bwd_dkv_bf16_kernel", lib.flash_bwd_dkv_smem_bytes)):
         fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-        for D in (64, 128):
+        for D in (64, 128, 256):
             log(card, f"{kernel}<{D}> resources", **kernels[f"{kernel}<{D}>"],
                 dynamic_smem_bytes=fn(D, fa._DTYPES[torch.bfloat16]))
         assert kernels[f"{kernel}<64>"]["spill_stores"] == 0, kernels
+    # every D 256 instantiation (bf16: the column split; float32: q tiles of 32)
+    log(card, "flash kernels at head dim 256: registers, stack frame and spill bytes",
+        kernels={n: r for n, r in kernels.items() if n.startswith("flash_") and "256" in n})
     # the paged pair at the serving head dim: the split pass at each group it
     # is built for (Llama-3-8B runs group 4) and the combine
     paged = {n: r for n, r in kernels.items()
@@ -1435,47 +1494,38 @@ def flash_bound(name: str, B, S, Hq, Hkv, D, item: int) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def flash_kernel_phase(card: str) -> list[dict]:
-    """Each flash kernel against its plain version on the same inputs (the
-    backward ones fed the plain forward's lse and delta), then timed at the
-    trainer's shapes."""
-    errs = {n: {d: {"max_abs_err": 0.0, "max_row_rel_err": 0.0} for d in FLASH_DTYPES}
-            for n in FLASH_KERNELS}
-    failed = []
-    for dtype in FLASH_DTYPES:
-        for shape in FLASH_SHAPES:
-            for causal in (True, False):
-                q, k, v, do = flash_inputs(dtype, *shape, seed=SEED)
-                o, lse = fa.flash_fwd(q, k, v, causal)
-                torch.cuda.synchronize()
-                o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, causal)
-                lse_err = (lse - lse_ref).abs().max().item()
-                delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2).contiguous()
-                dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal)
-                dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
-                torch.cuda.synchronize()
-                dk_ref, dv_ref = fa.flash_bwd_dkv_ref(q, k, v, do, lse_ref, delta, causal)
-                got = {"o": flash_err(o, o_ref),
-                       "dq": flash_err(dq, fa.flash_bwd_dq_ref(q, k, v, do, lse_ref, delta,
-                                                               causal)),
-                       "dk": flash_err(dk, dk_ref), "dv": flash_err(dv, dv_ref)}
-                for n, outs in FLASH_OUTPUTS.items():
-                    for key, worst in errs[n][dtype].items():
-                        errs[n][dtype][key] = max([worst] + [got[out][key] for out in outs])
-                log(card, "flash kernels check", dtype=str(dtype), shape=shape, causal=causal,
-                    errors=got, lse_max_abs_err=lse_err, lse_atol=LSE_ATOL,
-                    rule=(f"max abs <= {FLASH_F32_ATOL} * max(1, max |plain|)"
-                          if dtype == torch.float32 else
-                          f"per row |d| <= {FLASH_BF16_ROW_RTOL} |plain| + {FLASH_BF16_ROW_ATOL}"))
-                failed += [(str(dtype), shape, causal, out) for out, e in got.items()
-                           if not e["ok"]]
-                if lse_err > LSE_ATOL:
-                    failed.append((str(dtype), shape, causal, "lse"))
-                del q, k, v, do, o, lse, o_ref, lse_ref, delta, dq, dk, dv, dk_ref, dv_ref
-    assert not failed, failed
+def flash_check(card: str, dtype, shape, causal: bool) -> tuple[dict, list]:
+    """The three kernels against their plain versions on the same inputs
+    (the backward ones fed the plain forward's lse and delta): each output's
+    errors are logged and returned; the list of what broke its rule."""
+    q, k, v, do = flash_inputs(dtype, *shape, seed=SEED)
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, causal)
+    lse_err = (lse - lse_ref).abs().max().item()
+    delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
+    torch.cuda.synchronize()
+    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(q, k, v, do, lse_ref, delta, causal)
+    got = {"o": flash_err(o, o_ref),
+           "dq": flash_err(dq, fa.flash_bwd_dq_ref(q, k, v, do, lse_ref, delta, causal)),
+           "dk": flash_err(dk, dk_ref), "dv": flash_err(dv, dv_ref)}
+    log(card, "flash kernels check", dtype=str(dtype), shape=shape, causal=causal,
+        kernel_head_dim=fa.kernel_head_dim(shape[-1]), errors=got, lse_max_abs_err=lse_err,
+        lse_atol=LSE_ATOL,
+        rule=(f"max abs <= {FLASH_F32_ATOL} * max(1, max |plain|)"
+              if dtype == torch.float32 else
+              f"per row |d| <= {FLASH_BF16_ROW_RTOL} |plain| + {FLASH_BF16_ROW_ATOL}"))
+    failed = [(str(dtype), shape, causal, out) for out, e in got.items() if not e["ok"]]
+    if lse_err > LSE_ATOL:
+        failed.append((str(dtype), shape, causal, "lse"))
+    return got, failed
 
-    cfg = llama.LlamaConfig.llama_1b()
-    shape = (TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads, cfg.hd)
+
+def flash_timings(card: str, shape, label: str) -> dict:
+    """The three bf16 kernels, causal, at ``shape``: CUDA events (L2 flushed)
+    beside the plain version, SDPA forward and backward and the bound."""
     q, k, v, do = flash_inputs(torch.bfloat16, *shape, seed=SEED)
     o, lse = fa.flash_fwd(q, k, v, True)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
@@ -1499,7 +1549,7 @@ def flash_kernel_phase(card: str) -> list[dict]:
             qt, kt, vt, is_causal=True, enable_gqa=True), flush)
     lib_bwd_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
                                                      retain_graph=True), flush)
-    entries = []
+    out = {}
     for name, (kernel, plain) in calls.items():
         t = {"kernel_ms": time_ms(kernel, flush), "plain_ms": time_ms(plain, flush, 5, 1),
              "kernel_ms_repeat": time_ms(kernel, flush)}
@@ -1507,11 +1557,36 @@ def flash_kernel_phase(card: str) -> list[dict]:
         t["achieved_tflops"] = flash_ops(name, *shape) / t["kernel_ms"] / 1e9
         t["bound_share"] = t["bound_ms"] / t["kernel_ms"]
         t["library_ms"] = lib_fwd_ms if name == "flash_fwd" else lib_bwd_ms
-        library = ("SDPA forward, is_causal, enable_gqa" if name == "flash_fwd" else
-                   "SDPA backward: dq, dk and dv in one call")
-        log(card, f"{name} timing (trainer shapes)", dtype="bf16", causal=True,
-            shapes=dict(zip("B S Hq Hkv D".split(), shape)), library=library,
-            library_fwd_max_abs_err=lib_err, **t)
+        t["library"] = ("SDPA forward, is_causal, enable_gqa" if name == "flash_fwd" else
+                        "SDPA backward: dq, dk and dv in one call")
+        log(card, f"{name} timing ({label})", dtype="bf16", causal=True,
+            shapes=dict(zip("B S Hq Hkv D".split(), shape)), library_fwd_max_abs_err=lib_err,
+            **t)
+        out[name] = t
+    return out
+
+
+def flash_kernel_phase(card: str) -> list[dict]:
+    """Each flash kernel against its plain version on FLASH_SHAPES, then
+    timed at the trainer's shapes."""
+    errs = {n: {d: {"max_abs_err": 0.0, "max_row_rel_err": 0.0} for d in FLASH_DTYPES}
+            for n in FLASH_KERNELS}
+    failed = []
+    for dtype in FLASH_DTYPES:
+        for shape in FLASH_SHAPES:
+            for causal in (True, False):
+                got, broke = flash_check(card, dtype, shape, causal)
+                failed += broke
+                for n, outs in FLASH_OUTPUTS.items():
+                    for key, worst in errs[n][dtype].items():
+                        errs[n][dtype][key] = max([worst] + [got[out][key] for out in outs])
+    assert not failed, failed
+
+    cfg = llama.LlamaConfig.llama_1b()
+    shape = (TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads, cfg.hd)
+    timed = flash_timings(card, shape, "trainer shapes")
+    entries = []
+    for name, t in timed.items():
         entries.append({
             "name": name, "kernel": FLASH_KERNELS[name][2], "route": "cuda",
             "source": "ray_tpu_torch/csrc/flash_attention.cu", "replaces": FLASH_KERNELS[name][0],
@@ -1522,9 +1597,73 @@ def flash_kernel_phase(card: str) -> list[dict]:
             "max_row_rel_err_f32": errs[name][torch.float32]["max_row_rel_err"],
             "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "library": library,
+            "library_ms": t["library_ms"], "library": t["library"],
         })
     return entries
+
+
+def flash_d256_phase(card: str) -> tuple[dict, dict]:
+    """Flash at head dim 256 (Llama-3.2-1B's widths as 8 query and 2 kv
+    heads of 256): the three kernels against their plain versions in bf16
+    at B 4 x S 2048 causal, D 192 (zero-padded to 256) in bf16, and float32
+    at short S; the bf16 kernels timed there beside SDPA and the bound (the
+    same bound as the D 64 rows: Hq x D is 2048 in both); then 5 train steps
+    of that config cut to D256_LAYERS layers at B 2 x S 2048 through
+    auto_attention, every step through the three kernels; after them the
+    grad norm and wq/wk/wv gradients against dense attention within the
+    training limits (the loss gap logged), and the loss and wq/wk/wv
+    against plain float32 attention within D256_F32_REF_TOL. Returns each
+    kernel's D 256 row and the train path's launches."""
+    errs, failed = {n: {} for n in FLASH_KERNELS}, []
+    checks = [(torch.bfloat16, FLASH_D256_SHAPE, True), (torch.bfloat16, FLASH_D192_SHAPE, True),
+              (torch.bfloat16, FLASH_D192_SHAPE, False)]
+    checks += [(torch.float32, shape, causal) for shape in FLASH_D256_F32_SHAPES
+               for causal in (True, False)]
+    for dtype, shape, causal in checks:
+        got, broke = flash_check(card, dtype, shape, causal)
+        failed += broke
+        key = f"{str(dtype).replace('torch.', '')} D {shape[-1]}"
+        for n, outs in FLASH_OUTPUTS.items():
+            errs[n][key] = max([errs[n].get(key, 0.0)] + [got[o]["max_abs_err"] for o in outs])
+    assert not failed, failed
+    timed = flash_timings(card, FLASH_D256_SHAPE, "head dim 256, Llama-3.2-1B widths")
+    rows = {n: {"kernel": f"{FLASH_KERNELS[n][2].split('<')[0]}<256>", "max_abs_err": errs[n],
+                **timed[n]} for n in FLASH_KERNELS}
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama_1b(), num_heads=8, num_kv_heads=2,
+                              head_dim=256, num_layers=D256_LAYERS)
+    opt = spmd.make_optimizer(warmup=1)
+    state = spmd.init_state(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), opt,
+                            device=DEVICE)
+    step = spmd.make_train_step(cfg, opt, device=DEVICE)
+    rng = np.random.default_rng(SEED + 4)
+    tokens = rng.integers(0, cfg.vocab_size, (D256_BATCH, TRAIN_SEQ))
+    targets = np.concatenate([tokens[:, 1:], np.full((D256_BATCH, 1), -100)], axis=1)
+    batch = (torch.from_numpy(tokens).to(DEVICE), torch.from_numpy(targets).to(DEVICE))
+    losses, times = [], []
+    fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0  # this path's only
+    for _ in range(TRAIN_STEPS):
+        t0 = time.monotonic()
+        state, m = step(state, *batch)
+        losses.append(m["loss"].item())
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+    launches = flash_launches()
+    L = cfg.num_layers
+    want = {"flash_fwd": 2 * L * TRAIN_STEPS, "flash_bwd_dq": L * TRAIN_STEPS,
+            "flash_bwd_dkv": L * TRAIN_STEPS}
+    assert launches == want, (launches, want)
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    log(card, "training path at head dim 256 (Llama-3.2-1B widths, 8/2 heads of 256)",
+        layers=L, batch=D256_BATCH, seq=TRAIN_SEQ, losses=losses, step_s=times,
+        step_ms_median_2_to_5=1e3 * statistics.median(times[1:]), flash_launches=launches)
+    training_agreement_phase(card, cfg, state.params, batch, "head dim 256, 4 layers",
+                             hold_loss=False)
+    f32_reference_phase(card, cfg, {"after 5 steps": state.params}, batch, D256_F32_REF_TOL,
+                        "head dim 256, 4 layers")
+    del state, step, batch
+    return rows, launches
 
 
 def train_batch(cfg: llama.LlamaConfig):
@@ -1589,9 +1728,12 @@ def trainer_phase(card: str, cfg: llama.LlamaConfig):
     return launches, state, step, (tokens, targets), initial
 
 
-def training_agreement_phase(card: str, cfg: llama.LlamaConfig, params, batch) -> None:
+def training_agreement_phase(card: str, cfg: llama.LlamaConfig, params, batch,
+                             model: str = "Llama-3.2-1B", hold_loss: bool = True) -> None:
     """loss_fn and its backward from the same parameters, once through the
-    flash kernels (auto_attention) and once through dense attention."""
+    flash kernels (auto_attention) and once through dense attention. With
+    ``hold_loss`` False the loss gap is logged against TRAIN_LOSS_REL_TOL
+    but not held to it (the D 256 path, see D256_F32_REF_TOL)."""
     tensors = spmd.leaves(params)
     at = {n: next(i for i, t in enumerate(tensors) if t is params["layers"][n])
           for n in TRAIN_QKV_GRAD_REL_TOL}
@@ -1614,12 +1756,15 @@ def training_agreement_phase(card: str, cfg: llama.LlamaConfig, params, batch) -
                    / torch.linalg.vector_norm(g)).item()
                for n, g in qkv_grads["dense"].items()}
     assert np.isfinite([got["flash"][:2], got["dense"][:2]]).all(), got
-    log(card, "training agreement: flash kernels vs dense attention", loss_flash=got["flash"][0],
+    log(card, f"training agreement: flash kernels vs dense attention ({model})",
+        loss_flash=got["flash"][0],
         loss_dense=got["dense"][0], loss_rel_diff=rel_loss, loss_rel_tol=TRAIN_LOSS_REL_TOL,
+        loss_within_tol=rel_loss <= TRAIN_LOSS_REL_TOL, loss_held=hold_loss,
         grad_norm_flash=got["flash"][1], grad_norm_dense=got["dense"][1],
         grad_norm_rel_diff=rel_norm, grad_norm_rel_tol=TRAIN_GRAD_NORM_REL_TOL,
         grad_rel_diff=rel_qkv, grad_rel_tol=TRAIN_QKV_GRAD_REL_TOL)
-    assert rel_loss <= TRAIN_LOSS_REL_TOL and rel_norm <= TRAIN_GRAD_NORM_REL_TOL, got
+    assert rel_loss <= TRAIN_LOSS_REL_TOL or not hold_loss, got
+    assert rel_norm <= TRAIN_GRAD_NORM_REL_TOL, got
     assert all(rel_qkv[n] <= tol for n, tol in TRAIN_QKV_GRAD_REL_TOL.items()), rel_qkv
 
 
@@ -1649,7 +1794,8 @@ def attention_gaps(got: tuple, ref: tuple) -> dict:
     return gaps
 
 
-def f32_reference_phase(card: str, cfg: llama.LlamaConfig, points: dict, batch) -> None:
+def f32_reference_phase(card: str, cfg: llama.LlamaConfig, points: dict, batch,
+                        tol: dict = TRAIN_F32_REF_TOL, model: str = "Llama-3.2-1B") -> None:
     """The loss and the wq/wk/wv gradients through the flash kernels against
     plain float32 attention from the same parameters, at each point."""
     readings = {}
@@ -1662,10 +1808,10 @@ def f32_reference_phase(card: str, cfg: llama.LlamaConfig, points: dict, batch) 
         readings[label] = attention_gaps(kernels, plain)
         readings[label]["loss_kernels"], readings[label]["loss_plain"] = kernels[0], plain[0]
         del kernels, plain
-    log(card, "training: flash kernels vs plain float32 attention (relative gaps)",
-        readings=readings, tol=TRAIN_F32_REF_TOL)
-    over = [(p, n) for p, gaps in readings.items() for n, tol in TRAIN_F32_REF_TOL[p].items()
-            if not gaps[n] <= tol]
+    log(card, f"training: flash kernels vs plain float32 attention, relative gaps ({model})",
+        readings=readings, tol=tol)
+    over = [(p, n) for p, gaps in readings.items() for n, lim in tol[p].items()
+            if not gaps[n] <= lim]
     assert not over, (over, readings)
 
 
@@ -1878,22 +2024,26 @@ def draft_kernel_phase(card: str, dcfg: llama.LlamaConfig) -> dict:
     return out
 
 
-def paged_shapes_phase(card: str, cfg: llama.LlamaConfig) -> list[dict]:
+def paged_shapes_phase(card: str, cfg: llama.LlamaConfig, head_dims=PAGED_NEW_HEAD_DIMS,
+                       wider: bool = True,
+                       what: str = "paged_decode_attention at a widened shape") -> list[dict]:
     """The paged pair at the shapes it was widened to take, at Llama-3-8B's
     batch, query heads and serving lengths (B 8, Hq 32, MAX_SEQ 2048): head
-    dims 48, 80, 96 and 256 (Hkv 8, group 4, pages of 16), a group of 16 (D
-    128, Hkv 2: two chunks of 8 query heads on the grid), and pages of 128
-    tokens (D 128, Hkv 8: each read as 2 sub-pages of 64). In bf16 and
-    float32, each against its plain version on the main path's mid-decode
-    lengths and the ragged set (TOL), then timed (CUDA events, L2 flushed)
-    beside the plain version, SDPA over pre-gathered KV and the bound, and
-    the pair's own device time from torch.profiler (the events also hold
-    the wrapper's other launches and any wait for the host)."""
+    dims 48, 80, 96 and 256 (Hkv 8, group 4, pages of 16) and, with
+    ``wider``, a group of 16 (D 128, Hkv 2: two chunks of 8 query heads on
+    the grid) and pages of 128 tokens (D 128, Hkv 8: each read as 2
+    sub-pages of 64); or at other ``head_dims``. In bf16 and float32, each
+    against its plain version on the main path's mid-decode lengths and the
+    ragged set (TOL), then timed (CUDA events, L2 flushed) beside the plain
+    version, SDPA over pre-gathered KV and the bound, and the pair's own
+    device time from torch.profiler (the events also hold the wrapper's
+    other launches and any wait for the host)."""
     lengths = [len(p) + NEW_TOKENS // 2 for p in prompts(cfg)]
     heads = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads, hd=cfg.hd)
-    shapes = [(f"D {d}", dict(heads, hd=d), BLOCK) for d in PAGED_NEW_HEAD_DIMS]
-    shapes += [("group 16, D 128", dict(heads, num_kv_heads=2), BLOCK),
-               ("pages of 128, D 128", heads, 128)]
+    shapes = [(f"D {d}", dict(heads, hd=d), BLOCK) for d in head_dims]
+    if wider:
+        shapes += [("group 16, D 128", dict(heads, num_kv_heads=2), BLOCK),
+                   ("pages of 128, D 128", heads, 128)]
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEVICE)
     out = []
     for label, shape, block in shapes:
@@ -1917,11 +2067,246 @@ def paged_shapes_phase(card: str, cfg: llama.LlamaConfig) -> list[dict]:
             t.update(paged_launch_split(args))  # the pair's own device time
             row = {"shape": label, "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
                    "tol": TOL[dtype], "B": len(lengths), "Hq": scfg.num_heads,
-                   "Hkv": scfg.num_kv_heads, "D": scfg.hd, "BS": block,
-                   "sub_page": pa.sub_page_size(block), **t}
-            log(card, "paged_decode_attention at a widened shape", lengths=lengths, **row)
+                   "Hkv": scfg.num_kv_heads, "D": scfg.hd, "kernel_D": pa.kernel_head_dim(scfg.hd),
+                   "BS": block, "sub_page": pa.sub_page_size(block), **t}
+            log(card, what, lengths=lengths, **row)
             out.append(row)
     return out
+
+
+def paged_any_dim_phase(card: str, cfg: llama.LlamaConfig) -> tuple[list[dict], int]:
+    """The paged pair at head dims between the built ones
+    (PAGED_ANY_HEAD_DIMS, each on the kernel of the next built head dim with
+    its own passed at run time) at the main path's batch, heads and lengths,
+    as paged_shapes_phase checks and times the widened ones; then a
+    PagedLLMEngine at head dim 40 (a small-depth model) must take the model
+    and run every decode step of the 8 prompts through the kernel. Returns
+    the rows and the engine's launches."""
+    rows = paged_shapes_phase(card, cfg, PAGED_ANY_HEAD_DIMS, wider=False,
+                              what="paged_decode_attention at a head dim between the built ones")
+    dcfg = llama.LlamaConfig(vocab_size=D40_VOCAB, hidden_size=D40_HIDDEN,
+                             intermediate_size=D40_MLP, num_layers=D40_LAYERS, num_heads=32,
+                             num_kv_heads=8, max_seq_len=MAX_SEQ)
+    assert dcfg.hd == 40
+    eng = PagedLLMEngine(PagedLLMConfig(model_config=dcfg, max_batch_size=BATCH,
+                                        max_seq_len=MAX_SEQ, block_size=BLOCK,
+                                        prefill_buckets=PREFILL_BUCKETS),
+                         seed=SEED, device=DEVICE)
+    try:
+        pa.launches = 0  # count only this engine's launches
+        results, tps, stats = serve(eng, prompts(dcfg))
+        launches = pa.launches
+    finally:
+        eng.shutdown()
+    steps = stats["decode_steps"]
+    assert steps > 0 and launches == dcfg.num_layers * steps, (launches, steps)
+    assert all(r.num_generated == NEW_TOKENS for r in results)
+    assert all(0 <= t < dcfg.vocab_size for r in results for t in r.token_ids)
+    log(card, "PagedLLMEngine at head dim 40 (32/8 heads, 4 layers, bf16)",
+        layers=dcfg.num_layers, head_dim=dcfg.hd, kernel_head_dim=pa.kernel_head_dim(dcfg.hd),
+        requests=BATCH, new_tokens=NEW_TOKENS, decode_steps=steps,
+        paged_decode_launches=launches, decode_tokens_per_s=tps)
+    return rows, launches
+
+
+# ---------------------------------------------------------------- PD app, DP attention
+def post_result(port: int, route: str, body: dict) -> tuple:
+    """POST a deployment's route: (its result, wall seconds)."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{route}",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.monotonic()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return json.loads(r.read())["result"], time.monotonic() - t0
+    except urllib.error.HTTPError as e:
+        raise RuntimeError(f"POST {route}: {e.code} {e.read()[:2000]!r}") from None
+
+
+def send_all(fn, args: list) -> list:
+    """``fn(*a)`` for every ``a`` at once, one client thread each."""
+    results: list = [None] * len(args)
+
+    def client(i: int) -> None:
+        try:
+            results[i] = fn(*args[i])
+        except Exception as e:  # noqa: BLE001 - raised below, in the phase's thread
+            results[i] = e
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(args))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    failed = [r for r in results if r is None or isinstance(r, Exception)]
+    assert not failed, failed
+    return results
+
+
+def pd_app_phase(card: str, cfg: llama.LlamaConfig, params, plain: dict,
+                 tol: float) -> dict:
+    """The PD deployments over HTTP on the main path's weights (shared by
+    reference): deploy_pd_app with one PDPrefill and one PDDecode replica
+    behind the proxy answers the 8 main-path prompts at once with the
+    direct engine's tokens (near-tie rule) from two different replicas;
+    the decode replica's engine runs every decode step through the paged
+    kernel and no handoff is left live on either side. One more handoff
+    taken by hand through the two fleets' handles gives the bytes and the
+    host-card copy times. Then build_pd_deployment (both engines in one
+    replica, ``disaggregated: False``) answers the same prompts. Returns
+    the paged launches of each."""
+    from ray_tpu_torch.serve import pd
+
+    reqs = prompts(cfg)
+    conf = PagedLLMConfig(model_config=cfg, max_batch_size=BATCH, max_seq_len=MAX_SEQ,
+                          block_size=BLOCK, prefill_buckets=PREFILL_BUCKETS)
+    bodies = [{"prompt_ids": p, "max_tokens": NEW_TOKENS} for p in reqs]
+    out = {}
+    ray_tpu_torch.init()
+    try:
+        t0 = time.monotonic()
+        handle = pd.deploy_pd_app(conf, params=params, device=DEVICE, route_prefix="/pd")
+        t_deploy = time.monotonic() - t0
+        port = rt_serve.start_http_proxy(port=0).port
+        pa.launches = 0  # count only the app's launches
+        t1 = time.monotonic()
+        results = send_all(post_result, [(port, "/pd", b) for b in bodies])
+        wall = time.monotonic() - t1
+        launches = pa.launches
+        stats = ray_tpu_torch.get(handle.stats.remote(), timeout=60)
+        # one handoff by hand: the 600-token prompt's pages through the handles
+        ph = rt_serve.get_deployment_handle("PDPrefill")
+        dh = rt_serve.get_deployment_handle("PDDecode")
+        pre = ray_tpu_torch.get(ph.prefill.remote({"prompt_ids": reqs[5]}), timeout=120)
+        kv = [pre["handoff"]["kv"][n] for n in ("k", "v")]
+        nbytes = sum(t.numel() * t.element_size() for t in kv)
+        on_card = [t.to(DEVICE) for t in kv]
+        h2d = copy_ms(lambda: [t.to(DEVICE) for t in kv])
+        d2h = copy_ms(lambda: [t.cpu() for t in on_card])
+        del on_card, kv
+        live_mid = ray_tpu_torch.get(handle.stats.remote(), timeout=60)
+        ray_tpu_torch.get(dh.decode.remote({"handoff": pre["handoff"], "max_tokens": 2}),
+                          timeout=120)
+        del pre
+        live_end = ray_tpu_torch.get(handle.stats.remote(), timeout=60)
+        for name in ("PDIngress", "PDPrefill", "PDDecode"):
+            rt_serve.delete(name)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        handle = rt_serve.run(pd.build_pd_deployment(conf, params=params, device=DEVICE),
+                              route_prefix="/pdc")
+        pa.launches = 0
+        t2 = time.monotonic()
+        colo = send_all(post_result, [(port, "/pdc", b) for b in bodies])
+        colo_wall = time.monotonic() - t2
+        colo_launches = pa.launches
+        colo_stats = ray_tpu_torch.get(handle.stats.remote(), timeout=60)
+    finally:
+        rt_serve.shutdown()
+        ray_tpu_torch.shutdown()
+        gc.collect()
+        torch.cuda.empty_cache()
+    answers = [r for r, _ in results]
+    assert all(a["disaggregated"] is True and a["usage"]["completion_tokens"] == NEW_TOKENS
+               for a in answers), answers
+    assert all(a["pd"]["prefill_replica"] != a["pd"]["decode_replica"] for a in answers)
+    steps = stats["decode"]["decode_steps"]
+    assert steps > 0 and launches == cfg.num_layers * steps, (launches, steps)
+    kv_live = {side: (stats[side]["kv"]["live_handoffs"], live_mid[side]["kv"]["live_handoffs"],
+                      live_end[side]["kv"]["live_handoffs"]) for side in ("prefill", "decode")}
+    assert kv_live == {"prefill": (0, 1, 0), "decode": (0, 0, 0)}, kv_live
+    agree = near_tie_rule(cfg, params, reqs, plain["tokens"], [a["token_ids"] for a in answers],
+                          tol)
+    walls = [w for _, w in results]
+    log(card, "PD app over HTTP: deploy_pd_app, Llama-3-8B PDPrefill + PDDecode",
+        deploy_s=t_deploy, requests=len(reqs), prompt_tokens=[len(p) for p in reqs],
+        new_tokens=NEW_TOKENS, wall_s=wall, request_wall_ms=[1e3 * w for w in walls],
+        prefill_s=[a["timings"]["ttft_s"] for a in answers],
+        replicas=sorted({(a["pd"]["prefill_replica"], a["pd"]["decode_replica"])
+                         for a in answers}),
+        decode_steps=steps, paged_decode_launches=launches,
+        live_handoffs_end_mid_after={k: list(v) for k, v in kv_live.items()},
+        handoff_prompt_tokens=len(reqs[5]), handoff_bytes=nbytes, host_to_device_ms=h2d,
+        device_to_host_ms=d2h, **agree)
+    out["PD app decode (HTTP)"] = launches
+
+    colo_answers = [r for r, _ in colo]
+    assert all(a["disaggregated"] is False and a["usage"]["completion_tokens"] == NEW_TOKENS
+               for a in colo_answers), colo_answers
+    steps = colo_stats["decode"]["decode_steps"]
+    assert steps > 0 and colo_launches == cfg.num_layers * steps, (colo_launches, steps)
+    agree = near_tie_rule(cfg, params, reqs, plain["tokens"],
+                          [a["token_ids"] for a in colo_answers], tol)
+    log(card, "PD co-located over HTTP: build_pd_deployment, Llama-3-8B",
+        requests=len(reqs), new_tokens=NEW_TOKENS, wall_s=colo_wall,
+        request_wall_ms=[1e3 * w for _, w in colo], decode_steps=steps,
+        paged_decode_launches=colo_launches, **agree)
+    out["PD co-located (HTTP)"] = colo_launches
+    return out
+
+
+def dp_phase(card: str, cfg: llama.LlamaConfig, params, plain: dict, tol: float) -> int:
+    """DP attention: DPAttentionGroup of DP_SIZE Llama-3-8B ranks on the main
+    path's weights (shared by reference), no placement group. One request
+    runs while the other rank dummy-steps in every lockstep round (the
+    round that prefills also decodes, so NEW_TOKENS tokens take NEW_TOKENS -
+    1 decode steps, one round each); then DP_BURST requests at once. Tokens
+    against the direct engine's under the near-tie rule; every decode step
+    and every dummy decode through the paged kernel. Returns the launches."""
+    from ray_tpu_torch.serve.dp_attention import DPAttentionGroup
+
+    reqs = prompts(cfg)
+    conf = PagedLLMConfig(model_config=cfg, max_batch_size=BATCH, max_seq_len=MAX_SEQ,
+                          block_size=BLOCK, prefill_buckets=PREFILL_BUCKETS)
+    ray_tpu_torch.init()
+    try:
+        pa.launches = 0  # count only the group's launches
+        group = DPAttentionGroup(conf, dp_size=DP_SIZE, use_placement_group=False,
+                                 params=params, device=DEVICE)
+        try:
+            t0 = time.monotonic()
+            one = group.generate(reqs[0], NEW_TOKENS, timeout=600)
+            t_one = time.monotonic() - t0
+            assert group.wait_for(lambda g: g.idle, timeout=120)
+            rounds_one, stats_one, launches_one = group.rounds, group.stats(), pa.launches
+            burst_reqs = reqs[1:1 + DP_BURST]
+            t1 = time.monotonic()
+            burst = send_all(lambda p: group.generate(p, NEW_TOKENS, timeout=600),
+                             [(p,) for p in burst_reqs])
+            burst_wall = time.monotonic() - t1
+            assert group.wait_for(lambda g: g.idle, timeout=120)
+            rounds, stats, launches = group.rounds, group.stats(), pa.launches
+        finally:
+            group.shutdown()
+    finally:
+        ray_tpu_torch.shutdown()
+        gc.collect()
+        torch.cuda.empty_cache()
+    idle_rank, busy_rank = sorted(stats_one, key=lambda st: st["decode_steps"])
+    assert idle_rank["decode_steps"] == 0 and busy_rank["decode_steps"] == NEW_TOKENS - 1, (
+        stats_one)
+    assert rounds_one >= busy_rank["decode_steps"], rounds_one
+    assert idle_rank["dummy_decodes"] >= busy_rank["decode_steps"], stats_one
+    work = sum(st["decode_steps"] + st["dummy_decodes"] for st in stats)
+    work_one = sum(st["decode_steps"] + st["dummy_decodes"] for st in stats_one)
+    assert launches_one == cfg.num_layers * work_one, (launches_one, stats_one)
+    assert launches == cfg.num_layers * work, (launches, stats)
+    assert len(one["token_ids"]) == NEW_TOKENS and all(len(r["token_ids"]) == NEW_TOKENS
+                                                       for r in burst)
+    agree_one = near_tie_rule(cfg, params, reqs[:1], plain["tokens"][:1], [one["token_ids"]],
+                              tol)
+    agree = near_tie_rule(cfg, params, burst_reqs, plain["tokens"][1:1 + DP_BURST],
+                          [r["token_ids"] for r in burst], tol)
+    log(card, "DP attention: DPAttentionGroup of 2 Llama-3-8B ranks, lockstep",
+        one_request_s=t_one, rounds_one_request=rounds_one,
+        one_request_rank_stats=[{k: st[k] for k in ("decode_steps", "dummy_decodes")}
+                                for st in stats_one],
+        one_request=agree_one, burst_requests=DP_BURST, burst_wall_s=burst_wall,
+        burst_rounds=rounds - rounds_one, ms_per_round=1e3 * burst_wall / (rounds - rounds_one),
+        rank_stats=[{k: st[k] for k in ("decode_steps", "dummy_decodes")} for st in stats],
+        paged_decode_launches=launches, burst=agree)
+    return launches
 
 
 # ---------------------------------------------------------------- MoE, ViT
@@ -2168,28 +2553,47 @@ def main() -> int:
              "PD decode": pd_phase(card, cfg, params, plain, near_tie)}
     gc.collect()
     paths.update(spec_phase(card, cfg, params, plain, near_tie))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_new = time.monotonic()
+    paths.update(pd_app_phase(card, cfg, params, plain, near_tie))
+    paths["DP attention"] = dp_phase(card, cfg, params, plain, near_tie)
+    t_new = time.monotonic() - t_new
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    kernels[0]["launches_by_path"] = paths
     kernels[0]["draft_shape"] = draft_kernel_phase(card, llama.LlamaConfig.llama_1b())
     kernels[0]["widened_shapes"] = paged_shapes_phase(card, cfg)
+    t_any = time.monotonic()
+    kernels[0]["any_head_dim_shapes"], paths["head dim 40 engine"] = paged_any_dim_phase(
+        card, cfg)
+    t_new += time.monotonic() - t_any
+    kernels[0]["launches_by_path"] = paths
     t_serve = time.monotonic() - t_start
 
     flash = flash_kernel_phase(card)
     torch.cuda.empty_cache()
     cfg_train = llama.LlamaConfig.llama_1b()
     launches, state, step, batch, initial = trainer_phase(card, cfg_train)
-    for entry in flash:
-        entry["launches"] = launches[entry["name"]]
     training_agreement_phase(card, cfg_train, state.params, batch)
     initial = tree_map(lambda t: t.to(DEVICE), initial)
     f32_reference_phase(card, cfg_train, {"initial": initial, "after 5 steps": state.params},
                         batch)
     del initial
     profile_train_step(card, step, state, batch)
-    kernels += flash
     del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_d256 = time.monotonic()
+    d256_rows, d256_launches = flash_d256_phase(card)
+    t_new += time.monotonic() - t_d256
+    for entry in flash:
+        kernel = entry["name"]
+        entry["launches"] = launches[kernel]
+        entry["launches_by_path"] = {"train (Llama-3.2-1B, head dim 64)": launches[kernel],
+                                     "train (head dim 256, 4 layers)": d256_launches[kernel]}
+        entry["head_dim_256"] = d256_rows[kernel]
+    kernels += flash
     gc.collect()
     torch.cuda.empty_cache()
     t_models = time.monotonic()
@@ -2201,6 +2605,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     tiny_models_phase(card)
     log(card, "smoke wall", seconds=time.monotonic() - t_start, serving_seconds=t_serve,
+        pd_dp_any_dim_d256_seconds=t_new,
         moe_vit_tiny_seconds=time.monotonic() - t_models,
         param_count_serving=llama.param_count_analytic(cfg),
         param_count_training=llama.param_count_analytic(cfg_train))

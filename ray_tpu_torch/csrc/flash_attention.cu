@@ -16,9 +16,22 @@
 // Layouts: q, o, dO, dq [B, S, Hq, D]; k, v, dk, dv [B, S, Hkv, D], each read
 // or written through its (batch, seq, head) strides with unit stride over D;
 // lse and delta [B, Hq, S] float32. Query head h uses kv head h / g. The
-// kernels take head dims 64 and 128; the Python wrapper zero-pads any other
-// multiple of 8 up to 128 and passes the caller's head dim, from which the
-// launchers take the scale 1/sqrt(head dim).
+// kernels take head dims 64, 128 and 256; the Python wrapper zero-pads any
+// other head dim up to 256 to the next of them and passes the caller's head
+// dim, from which the launchers take the scale 1/sqrt(head dim).
+//
+// Head dim 256 (Gemma-style models) in bf16, the column split: each
+// thread's float32 accumulators (O in the forward, dQ, dK and dV) would
+// double from D 128's, 128 registers a thread for dK and dV alone, with
+// S, dP and the fragments on top, past the 255 a thread may hold. So the
+// grid's x axis carries two CTAs per head (ColumnSplit), each loading the
+// full-D Q and K (and dO and V in the backward) it needs, forming the full
+// products S = Q K^T and dP = dO V^T, so the softmax statistics and dS are
+// whole, and accumulating only its half of the output columns. A thread
+// then holds D 128's accumulators; the cost is a second QK^T (and dO V^T)
+// per tile pair and K/V tiles of 33 KB per 64 rows in shared memory. The
+// forward reads Q's fragments from shared memory per use at D 256 (64 more
+// registers otherwise) and loads only its half of V.
 //
 // Bound: operations. At the training shapes (B 4, S 2048, Hq 32, Hkv 8, D 64,
 // causal) the forward does 4 * B * Hq * D * S (S + 1) / 2 flops on ~85 MB, the
@@ -199,10 +212,11 @@ constexpr size_t up128(size_t x) { return (x + 127) & ~size_t(127); }
 
 // Tile sizes and padded shared-memory row lengths of the float32 kernels.
 // Rows are padded by 16 bytes so that row loads spread over the banks; every
-// buffer starts on a 128-byte boundary.
+// buffer starts on a 128-byte boundary. Their accumulators live in shared
+// memory, so D 256 needs no column split, only q tiles of 32 rows to fit.
 template <typename T, int D>
 struct Tiles {
-  static constexpr int BQ = 64;
+  static constexpr int BQ = D > 128 ? 32 : 64;  // D 256: 213 KB for dK/dV at 32
   static constexpr int BK = 32;
   static constexpr int LD = D + 16 / (int)sizeof(T);   // T tile [rows][D]
   static constexpr int LP = BK + 16 / (int)sizeof(T);  // T tile [BQ][BK]
@@ -356,22 +370,42 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// The column split of head dims above 128 (all three bf16 kernels): a CTA
+// accumulates DO = D / 2 of the output's columns, and the grid's x axis
+// carries kHalves CTAs per head. Each CTA still forms the full-D products
+// S = Q K^T (and dP = dO V^T), so its softmax statistics and dS are whole,
+// and only its half of O, dQ, dK or dV is held: a thread keeps D 128's
+// accumulators at D 256. At D 64 and 128, DO = D and kHalves = 1.
+template <int D>
+struct ColumnSplit {
+  static constexpr int DO = D > 128 ? D / 2 : D;
+  static constexpr int kHalves = D / DO;
+  static_assert(DO % 16 == 0 && DO * kHalves == D, "whole k16 steps a half");
+};
+
 // Tiles of the bf16 forward: 128 query rows, 64 keys, rows padded by 16
-// bytes; shared memory holds Q, then K and V of two stages. Each warp owns
-// kSlabs m16 slabs of rows, so every K and V fragment it loads from shared
-// memory feeds kSlabs products: two at D 64 (4 warps), one at D 128 (8
-// warps), where two would need more than 255 registers.
+// bytes; shared memory holds Q, then K and V of two stages (V only this
+// CTA's DO columns). Each warp owns kSlabs m16 slabs of rows, so every K and
+// V fragment it loads from shared memory feeds kSlabs products: two at D 64
+// (4 warps), one at D 128 and 256 (8 warps), where two would need more than
+// 255 registers. Q lives in registers up to D 128; at D 256 its fragments
+// (64 registers) are read from shared memory per use.
 template <int D>
 struct FwdTiles {
+  static constexpr int DO = ColumnSplit<D>::DO;
+  static constexpr int kHalves = ColumnSplit<D>::kHalves;
   static constexpr int kSlabs = D == 64 ? 2 : 1;
   static constexpr int BQ = 128;
   static constexpr int BK = 64;
   static constexpr int kThreads = 32 * BQ / (16 * kSlabs);
   static constexpr int kMinBlocks = D == 64 ? 2 : 1;  // D 128: 8 warps of ~200 registers
-  static constexpr int LD = D + 8;
+  static constexpr bool kResidentQ = D <= 128;
+  static constexpr int LD = D + 8;    // Q and K rows
+  static constexpr int LDV = DO + 8;  // V rows
   static constexpr size_t q_bytes = (size_t)BQ * LD * sizeof(bf16);
-  static constexpr size_t kv_elems = (size_t)BK * LD;
-  static constexpr size_t smem = q_bytes + 4 * kv_elems * sizeof(bf16);
+  static constexpr size_t k_elems = (size_t)BK * LD;
+  static constexpr size_t stage_elems = k_elems + (size_t)BK * LDV;  // K, then V
+  static constexpr size_t smem = q_bytes + 2 * stage_elems * sizeof(bf16);
 };
 
 // Rows [row0, row0 + R) of one head into a [R][LD] shared tile by cp.async,
@@ -397,19 +431,22 @@ __global__ void __launch_bounds__(FwdTiles<D>::kThreads, FwdTiles<D>::kMinBlocks
     bf16* __restrict__ o, float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
     Strides so, int S, int g, int causal, float scale) {
   using L = FwdTiles<D>;
-  constexpr int BQ = L::BQ, BK = L::BK, LD = L::LD, NT = L::kThreads, MS = L::kSlabs;
-  constexpr int KD = D / 16;  // k16 steps of Q K^T
-  constexpr int NS = BK / 8;  // n8 score tiles of one k tile
-  constexpr int NO = D / 8;   // n8 output tiles
+  constexpr int BQ = L::BQ, BK = L::BK, LD = L::LD, LDV = L::LDV, NT = L::kThreads;
+  constexpr int MS = L::kSlabs, DO = L::DO;
+  constexpr int KD = D / 16;   // k16 steps of Q K^T
+  constexpr int NS = BK / 8;   // n8 score tiles of one k tile
+  constexpr int NO = DO / 8;   // n8 output tiles of this CTA's columns
+  constexpr int KR = L::kResidentQ ? KD : 1;
   static_assert(KD % 2 == 0 && NO % 2 == 0 && BK % 16 == 0, "x4 loads take pairs");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* kv_s = reinterpret_cast<bf16*>(smem + L::q_bytes);  // stage t: K, V at 2t, 2t + 1
+  bf16* kv_s = reinterpret_cast<bf16*>(smem + L::q_bytes);  // stage t: K, then V
 
-  // blocks start in x-fastest order: every (head, batch) of the last q tile
-  // first, so the longest causal tiles lead and the shortest form the tail
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ, h = blockIdx.x, b = blockIdx.y;
-  const int hq = gridDim.x, kh = h / g;
+  // blocks start in x-fastest order: every (head, half, batch) of the last q
+  // tile first, so the longest causal tiles lead and the shortest form the tail
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ, b = blockIdx.y;
+  const int h = blockIdx.x / L::kHalves, col0 = blockIdx.x % L::kHalves * DO;
+  const int hq = gridDim.x / L::kHalves, kh = h / g;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int warp_r0 = 16 * MS * warp;  // this warp's rows: q0 + warp_r0 .. + 16 MS - 1
   const int warp_q0 = q0 + warp_r0;
@@ -417,15 +454,15 @@ __global__ void __launch_bounds__(FwdTiles<D>::kThreads, FwdTiles<D>::kMinBlocks
   const int col_t = 2 * (lane % 4);     // its first column in each n8 tile
   const float scale_log2 = scale * kLog2e;
   const bf16* k_head = k + b * sk.b + kh * sk.h;
-  const bf16* v_head = v + b * sv.b + kh * sv.h;
+  const bf16* v_head = v + b * sv.b + kh * sv.h + col0;  // this CTA's V columns
   const int n_k = causal ? (min(q0 + BQ, S) - 1) / BK + 1 : (S + BK - 1) / BK;
 
   cp_async_tile<BQ, D, LD, NT>(q_s, q + b * sq.b + h * sq.h, sq.s, q0, S);
   cp_async_tile<BK, D, LD, NT>(kv_s, k_head, sk.s, 0, S);
-  cp_async_tile<BK, D, LD, NT>(kv_s + L::kv_elems, v_head, sv.s, 0, S);
+  cp_async_tile<BK, DO, LDV, NT>(kv_s + L::k_elems, v_head, sv.s, 0, S);
   cp_async_commit();
 
-  uint32_t qf[MS][KD][4];
+  uint32_t qf[MS][KR][4];
   float acc[MS][NO][4];
   float m[MS][2], l[MS][2];  // per row: the max raw score (unscaled), the sum
 #pragma unroll
@@ -444,21 +481,21 @@ __global__ void __launch_bounds__(FwdTiles<D>::kThreads, FwdTiles<D>::kMinBlocks
     cp_async_wait_all();
     __syncthreads();
     if (kt + 1 < n_k) {
-      bf16* next = kv_s + ((kt + 1) & 1) * 2 * L::kv_elems;
+      bf16* next = kv_s + ((kt + 1) & 1) * L::stage_elems;
       cp_async_tile<BK, D, LD, NT>(next, k_head, sk.s, k0 + BK, S);
-      cp_async_tile<BK, D, LD, NT>(next + L::kv_elems, v_head, sv.s, k0 + BK, S);
+      cp_async_tile<BK, DO, LDV, NT>(next + L::k_elems, v_head, sv.s, k0 + BK, S);
       cp_async_commit();
     }
-    if (kt == 0) {
+    if (L::kResidentQ && kt == 0) {
 #pragma unroll
       for (int i = 0; i < MS; ++i)
 #pragma unroll
-        for (int kd = 0; kd < KD; ++kd)
+        for (int kd = 0; kd < KR; ++kd)
           ldsm_x4(qf[i][kd], q_s + (warp_r0 + 16 * i + lane % 16) * LD + kd * 16 + lane / 16 * 8);
     }
     if (causal && k0 > warp_q0 + 16 * MS - 1) continue;  // every key follows every row here
-    const bf16* k_st = kv_s + (kt & 1) * 2 * L::kv_elems;
-    const bf16* v_st = k_st + L::kv_elems;
+    const bf16* k_st = kv_s + (kt & 1) * L::stage_elems;
+    const bf16* v_st = k_st + L::k_elems;
 
     // S = Q K^T: one x4 load gives the B fragments of two k16 steps
     float s[MS][NS][4];
@@ -468,14 +505,27 @@ __global__ void __launch_bounds__(FwdTiles<D>::kThreads, FwdTiles<D>::kMinBlocks
       for (int j = 0; j < NS; ++j) s[i][j][0] = s[i][j][1] = s[i][j][2] = s[i][j][3] = 0.f;
 #pragma unroll
     for (int kd = 0; kd < KD; kd += 2) {
+      uint32_t qa[MS][2][4];
+#pragma unroll
+      for (int i = 0; i < MS; ++i)
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          if constexpr (L::kResidentQ) {
+#pragma unroll
+            for (int y = 0; y < 4; ++y) qa[i][x][y] = qf[i][kd + x][y];
+          } else {
+            ldsm_x4(qa[i][x],
+                    q_s + (warp_r0 + 16 * i + lane % 16) * LD + (kd + x) * 16 + lane / 16 * 8);
+          }
+        }
 #pragma unroll
       for (int j = 0; j < NS; ++j) {
         uint32_t bk[4];
         ldsm_x4(bk, k_st + (8 * j + lane % 8) * LD + kd * 16 + lane / 8 * 8);
 #pragma unroll
         for (int i = 0; i < MS; ++i) {
-          mma_bf16(s[i][j], qf[i][kd], bk[0], bk[1]);
-          mma_bf16(s[i][j], qf[i][kd + 1], bk[2], bk[3]);
+          mma_bf16(s[i][j], qa[i][0], bk[0], bk[1]);
+          mma_bf16(s[i][j], qa[i][1], bk[2], bk[3]);
         }
       }
     }
@@ -539,7 +589,7 @@ __global__ void __launch_bounds__(FwdTiles<D>::kThreads, FwdTiles<D>::kMinBlocks
 #pragma unroll
       for (int n = 0; n < NO; n += 2) {
         uint32_t bv[4];
-        ldsm_x4_trans(bv, v_st + (16 * t + lane % 16) * LD + n * 8 + lane / 16 * 8);
+        ldsm_x4_trans(bv, v_st + (16 * t + lane % 16) * LDV + n * 8 + lane / 16 * 8);
 #pragma unroll
         for (int i = 0; i < MS; ++i) {
           mma_bf16(acc[i][n], a[i], bv[0], bv[1]);
@@ -549,8 +599,9 @@ __global__ void __launch_bounds__(FwdTiles<D>::kThreads, FwdTiles<D>::kMinBlocks
     }
   }
 
-  // epilogue: rows past S are not stored; lse = m scale + ln l
-  bf16* o_head = o + b * so.b + h * so.h;
+  // epilogue: rows past S are not stored; lse = m scale + ln l, written by
+  // the CTA of the first columns (every half holds the same m and l)
+  bf16* o_head = o + b * so.b + h * so.h + col0;
   float* lse_row = lse + ((size_t)b * hq + h) * S;
 #pragma unroll
   for (int i = 0; i < MS; ++i)
@@ -564,7 +615,8 @@ __global__ void __launch_bounds__(FwdTiles<D>::kThreads, FwdTiles<D>::kMinBlocks
       for (int n = 0; n < NO; ++n)
         *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
             __floats2bfloat162_rn(acc[i][n][2 * r] / div, acc[i][n][2 * r + 1] / div);
-      if (lane % 4 == 0) lse_row[row] = l[i][r] > 0.f ? m[i][r] * scale + logf(div) : kNegInf;
+      if (lane % 4 == 0 && col0 == 0)
+        lse_row[row] = l[i][r] > 0.f ? m[i][r] * scale + logf(div) : kNegInf;
     }
 }
 
@@ -743,15 +795,21 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(
 // live. At D 64 each warp keeps its slab's Q and dO as ldmatrix.x4 A
 // fragments, and kMinBlocks caps the registers at 170 for 3 CTAs a SM with
 // no spill; at D 128, where the dQ accumulator alone takes 64 registers, Q
-// and dO are read from shared memory per use.
+// and dO are read from shared memory per use. At D 256 a CTA accumulates
+// half of dQ's columns (ColumnSplit), from full-D Q, dO, K and V tiles
+// (198 KB of shared memory, one CTA a SM), and takes a k tile 16 keys at a
+// time (16 registers of S and dP instead of 32), which keeps it from
+// spilling at 255 registers.
 template <int D>
 struct DqTiles {
+  static constexpr int DO = ColumnSplit<D>::DO;
+  static constexpr int kHalves = ColumnSplit<D>::kHalves;
   static constexpr int BQ = 64;
   static constexpr int BK = 64;
-  static constexpr int KC = 32;  // keys whose S and dP are live at once
+  static constexpr int KC = D > 128 ? 16 : 32;  // keys whose S and dP are live at once
   static constexpr int kThreads = 32 * BQ / 16;
   static constexpr bool kResidentQ = D == 64;  // Q/dO A fragments kept in registers
-  static constexpr int kMinBlocks = D == 64 ? 3 : 2;
+  static constexpr int kMinBlocks = D == 64 ? 3 : D == 128 ? 2 : 1;
   static constexpr int LD = D + 8;
   static constexpr size_t q_elems = (size_t)BQ * LD;   // one Q or dO tile
   static constexpr size_t kv_elems = (size_t)BK * LD;  // one K or V tile
@@ -766,9 +824,9 @@ __global__ void __launch_bounds__(DqTiles<D>::kThreads, DqTiles<D>::kMinBlocks) 
     Strides sdo, Strides sdq, int S, int g, int causal, float scale) {
   using L = DqTiles<D>;
   constexpr int BQ = L::BQ, BK = L::BK, KC = L::KC, LD = L::LD, NT = L::kThreads;
-  constexpr int KD = D / 16;  // k16 steps of Q K^T and dO V^T
-  constexpr int NS = KC / 8;  // n8 score tiles of one key chunk
-  constexpr int NO = D / 8;   // n8 tiles of dQ
+  constexpr int KD = D / 16;      // k16 steps of Q K^T and dO V^T
+  constexpr int NS = KC / 8;      // n8 score tiles of one key chunk
+  constexpr int NO = L::DO / 8;   // n8 tiles of this CTA's dQ columns
   constexpr int KR = L::kResidentQ ? KD : 1;
   static_assert(KD % 2 == 0 && NO % 2 == 0 && KC % 16 == 0 && BK % KC == 0,
                 "x4 loads take pairs");
@@ -777,10 +835,11 @@ __global__ void __launch_bounds__(DqTiles<D>::kThreads, DqTiles<D>::kMinBlocks) 
   bf16* do_s = q_s + L::q_elems;
   bf16* kv_s = do_s + L::q_elems;  // stage t: K, V at 2t, 2t + 1
 
-  // blocks start in x-fastest order: every (head, batch) of the last q tile
-  // first, so the longest causal tiles lead and the shortest form the tail
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ, h = blockIdx.x, b = blockIdx.y;
-  const int hq = gridDim.x, kh = h / g;
+  // blocks start in x-fastest order: every (head, half, batch) of the last q
+  // tile first, so the longest causal tiles lead and the shortest form the tail
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ, b = blockIdx.y;
+  const int h = blockIdx.x / L::kHalves, col0 = blockIdx.x % L::kHalves * L::DO;
+  const int hq = gridDim.x / L::kHalves, kh = h / g;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int warp_q0 = q0 + 16 * warp;   // this warp's rows: warp_q0 .. + 15
   const int row0 = warp_q0 + lane / 4;  // this thread's rows: row0 and row0 + 8
@@ -906,7 +965,8 @@ __global__ void __launch_bounds__(DqTiles<D>::kThreads, DqTiles<D>::kMinBlocks) 
 #pragma unroll
         for (int n = 0; n < NO; n += 2) {
           uint32_t bk[4];
-          ldsm_x4_trans(bk, k_st + (c0 + 16 * t + lane % 16) * LD + n * 8 + lane / 16 * 8);
+          ldsm_x4_trans(bk,
+                        k_st + (c0 + 16 * t + lane % 16) * LD + col0 + n * 8 + lane / 16 * 8);
           mma_bf16(acc[n], a, bk[0], bk[1]);
           mma_bf16(acc[n + 1], a, bk[2], bk[3]);
         }
@@ -915,7 +975,7 @@ __global__ void __launch_bounds__(DqTiles<D>::kThreads, DqTiles<D>::kMinBlocks) 
   }
 
   // epilogue: rows past S are not stored
-  bf16* dq_head = dq + b * sdq.b + h * sdq.h;
+  bf16* dq_head = dq + b * sdq.b + h * sdq.h + col0;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
@@ -941,14 +1001,18 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid
 // accumulators alone take 128 registers. kMinBlocks caps the registers: at
 // D 64 three CTAs a SM (at most 170 registers a thread) with no spill.
 // Rows are padded by 16 bytes. Shared memory holds K and V, then two ring
-// stages of Q, dO, lse and delta.
+// stages of Q, dO, lse and delta. At D 256 a CTA accumulates half of dK's
+// and dV's columns (ColumnSplit): S^T and dP^T still take the full-D K, V,
+// Q and dO tiles (133 KB), and a thread keeps D 128's 128 accumulators.
 template <int D>
 struct DkvTiles {
+  static constexpr int DO = ColumnSplit<D>::DO;
+  static constexpr int kHalves = ColumnSplit<D>::kHalves;
   static constexpr int BK = 64;
   static constexpr int BQ = D == 64 ? 64 : 32;
   static constexpr int kThreads = 32 * BK / 16;
   static constexpr bool kResidentKV = D == 64;  // K/V A fragments kept in registers
-  static constexpr int kMinBlocks = D == 64 ? 3 : 2;
+  static constexpr int kMinBlocks = D == 64 ? 3 : D == 128 ? 2 : 1;
   static constexpr int LD = D + 8;
   static constexpr size_t kv_bytes = 2 * (size_t)BK * LD * sizeof(bf16);
   static constexpr size_t q_elems = (size_t)BQ * LD;  // one Q or dO tile
@@ -965,8 +1029,8 @@ __global__ void __launch_bounds__(DkvTiles<D>::kThreads, DkvTiles<D>::kMinBlocks
     float scale) {
   using L = DkvTiles<D>;
   constexpr int BQ = L::BQ, BK = L::BK, LD = L::LD, NT = L::kThreads;
-  constexpr int KD = D / 16;   // k16 steps of K Q^T and V dO^T
-  constexpr int NO = D / 8;    // n8 tiles of dK and dV
+  constexpr int KD = D / 16;      // k16 steps of K Q^T and V dO^T
+  constexpr int NO = L::DO / 8;   // n8 tiles of this CTA's dK and dV columns
   constexpr int KR = L::kResidentKV ? KD : 1;
   static_assert(KD % 2 == 0 && NO % 2 == 0 && BQ % 16 == 0, "x4 loads take pairs");
   static_assert(L::kv_bytes % 16 == 0 && L::stage_bytes % 16 == 0, "16-byte aligned stages");
@@ -975,10 +1039,11 @@ __global__ void __launch_bounds__(DkvTiles<D>::kThreads, DkvTiles<D>::kMinBlocks
   bf16* v_s = k_s + BK * LD;
   unsigned char* ring = smem + L::kv_bytes;  // stage t: Q, dO, lse, delta
 
-  // blocks start in x-fastest order: every (kv head, batch) of k tile 0
-  // first, so the CTAs with the most causal q tiles lead
-  const int kh = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * BK;
-  const int hq = gridDim.x * g;
+  // blocks start in x-fastest order: every (kv head, half, batch) of k tile
+  // 0 first, so the CTAs with the most causal q tiles lead
+  const int b = blockIdx.y, k0 = blockIdx.z * BK;
+  const int kh = blockIdx.x / L::kHalves, col0 = blockIdx.x % L::kHalves * L::DO;
+  const int hq = gridDim.x / L::kHalves * g;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int warp_k0 = k0 + 16 * warp;   // this warp's keys: warp_k0 .. + 15
   const int key0 = warp_k0 + lane / 4;  // this thread's keys: key0 and key0 + 8
@@ -1120,7 +1185,7 @@ __global__ void __launch_bounds__(DkvTiles<D>::kThreads, DkvTiles<D>::kMinBlocks
       }
 #pragma unroll
       for (int n = 0; n < NO; n += 2) {
-        const int b_off = (16 * t + lane % 16) * LD + n * 8 + lane / 16 * 8;
+        const int b_off = (16 * t + lane % 16) * LD + col0 + n * 8 + lane / 16 * 8;
         uint32_t bo[4], bq[4];
         ldsm_x4_trans(bo, do_st + b_off);
         mma_bf16(dv_acc[n], ap, bo[0], bo[1]);
@@ -1133,8 +1198,8 @@ __global__ void __launch_bounds__(DkvTiles<D>::kThreads, DkvTiles<D>::kMinBlocks
   }
 
   // epilogue: keys past S are not stored
-  bf16* dk_head = dk + b * sdk.b + kh * sdk.h;
-  bf16* dv_head = dv + b * sdv.b + kh * sdv.h;
+  bf16* dk_head = dk + b * sdk.b + kh * sdk.h + col0;
+  bf16* dv_head = dv + b * sdv.b + kh * sdv.h + col0;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = key0 + 8 * r;
@@ -1230,7 +1295,7 @@ cudaError_t fwd_bf16(const void* q, const void* k, const void* v, void* o, void*
   if (q_tiles > 65535) return cudaErrorInvalidValue;
   cudaError_t err = prepare(kernel, L::smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(Hkv * g, B, q_tiles);
+  const dim3 grid(Hkv * g * L::kHalves, B, q_tiles);
   kernel<<<grid, L::kThreads, L::smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), static_cast<float*>(lse), stride(st, 0), stride(st, 1),
@@ -1268,7 +1333,7 @@ cudaError_t bwd_dq_bf16(const void* q, const void* k, const void* v, const void*
   if (q_tiles > 65535) return cudaErrorInvalidValue;
   cudaError_t err = prepare(kernel, L::smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(Hkv * g, B, q_tiles);
+  const dim3 grid(Hkv * g * L::kHalves, B, q_tiles);
   kernel<<<grid, L::kThreads, L::smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
@@ -1309,7 +1374,7 @@ cudaError_t bwd_dkv_bf16(const void* q, const void* k, const void* v, const void
   if (k_tiles > 65535) return cudaErrorInvalidValue;
   cudaError_t err = prepare(kernel, L::smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(Hkv, B, k_tiles);
+  const dim3 grid(Hkv * L::kHalves, B, k_tiles);
   kernel<<<grid, L::kThreads, L::smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
@@ -1351,16 +1416,18 @@ bool valid(int B, int S, int Hkv, int g, int D, int scale_dim) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D: 64 or 128. Shapes are checked by the
-// Python wrapper; what the kernels cannot take is refused here as well.
+// dtype: 0 = float32, 1 = bfloat16; D: 64, 128 or 256. Shapes are checked by
+// the Python wrapper; what the kernels cannot take is refused here as well.
 #define FLASH_DISPATCH(FN, ...)                                                     \
   {                                                                                 \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                             \
     const float scale = 1.0f / sqrtf((float)scale_dim);                             \
     if (dtype == 0 && D == 64) return (int)FN<float, 64>(__VA_ARGS__, scale, s);    \
     if (dtype == 0 && D == 128) return (int)FN<float, 128>(__VA_ARGS__, scale, s);  \
+    if (dtype == 0 && D == 256) return (int)FN<float, 256>(__VA_ARGS__, scale, s);  \
     if (dtype == 1 && D == 64) return (int)FN<bf16, 64>(__VA_ARGS__, scale, s);     \
     if (dtype == 1 && D == 128) return (int)FN<bf16, 128>(__VA_ARGS__, scale, s);   \
+    if (dtype == 1 && D == 256) return (int)FN<bf16, 256>(__VA_ARGS__, scale, s);   \
     return (int)cudaErrorInvalidValue;                                              \
   }
 
@@ -1377,6 +1444,8 @@ extern "C" int flash_fwd_smem_bytes(int D, int dtype) {
   if (dtype == 1 && D == 128) return (int)FwdTiles<128>::smem;
   if (dtype == 0 && D == 64) return (int)Tiles<float, 64>::fwd_smem;
   if (dtype == 0 && D == 128) return (int)Tiles<float, 128>::fwd_smem;
+  if (dtype == 1 && D == 256) return (int)FwdTiles<256>::smem;
+  if (dtype == 0 && D == 256) return (int)Tiles<float, 256>::fwd_smem;
   return -1;
 }
 
@@ -1385,6 +1454,8 @@ extern "C" int flash_bwd_dq_smem_bytes(int D, int dtype) {
   if (dtype == 1 && D == 128) return (int)DqTiles<128>::smem;
   if (dtype == 0 && D == 64) return (int)Tiles<float, 64>::dq_smem;
   if (dtype == 0 && D == 128) return (int)Tiles<float, 128>::dq_smem;
+  if (dtype == 1 && D == 256) return (int)DqTiles<256>::smem;
+  if (dtype == 0 && D == 256) return (int)Tiles<float, 256>::dq_smem;
   return -1;
 }
 
@@ -1393,6 +1464,8 @@ extern "C" int flash_bwd_dkv_smem_bytes(int D, int dtype) {
   if (dtype == 1 && D == 128) return (int)DkvTiles<128>::smem;
   if (dtype == 0 && D == 64) return (int)Tiles<float, 64>::dkv_smem;
   if (dtype == 0 && D == 128) return (int)Tiles<float, 128>::dkv_smem;
+  if (dtype == 1 && D == 256) return (int)DkvTiles<256>::smem;
+  if (dtype == 0 && D == 256) return (int)Tiles<float, 256>::dkv_smem;
   return -1;
 }
 

@@ -60,6 +60,14 @@
 //    the next power of two at or above D / 32 columns, so at D 48, 80 and
 //    96 the last lanes hold none. A float32 D 256 row is 1 KB, and a split
 //    takes 64 tokens of it in a 128 KB tile (one CTA a SM).
+//  - any head dim dh in 1..256 runs on the kernel built for the next of
+//    those at or above it (D), with dh given at run time: the pool's rows
+//    hold dh values, so the loads step by dh, copy each row in the largest
+//    aligned pieces its length allows (16 bytes when dh fills whole 16-byte
+//    chunks; 8, 4 or, for an odd bf16 row, 2 bytes otherwise) and zero
+//    columns dh..D-1 in shared memory; q is zero-padded the same way, the
+//    scale is 1/sqrt(dh), and the combine writes dh columns. No pool is
+//    padded, so a PD handoff carries the caller's dh.
 //  - groups: the kernel is built for groups of 1, 2, 4 and 8 (smaller
 //    groups padded with zero rows of q). A larger group is cut on the grid:
 //    grid (B, Hkv * n_chunks, n_splits), each CTA serving at most 8 query
@@ -143,6 +151,26 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// One piece of a K/V row whose head dim is not the kernel's: `bytes` (16,
+// 8, 4 or 2, the largest power of two dividing the row's bytes) global ->
+// shared, by cp.async down to 4 bytes and by a plain load and store for 2
+// (a bf16 row of odd length, which no copy wider than 2 bytes can align to)
+__device__ __forceinline__ void copy_piece(void* dst, const void* src, int bytes) {
+  switch (bytes) {
+    case 16:
+      cp_async16(dst, src);
+      break;
+    case 8:
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)), "l"(src));
+      break;
+    case 4:
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src));
+      break;
+    default:
+      *static_cast<unsigned short*>(dst) = *static_cast<const unsigned short*>(src);
+  }
+}
 
 // wait until at most n commit groups of this thread are in flight (n is a
 // constant once the chunk loop is unrolled)
@@ -230,7 +258,7 @@ paged_split_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pages, const T* __restrict__ v_pages,
     const int* __restrict__ tables, const int* __restrict__ lengths, float* __restrict__ ws_acc,
     float* __restrict__ ws_m, float* __restrict__ ws_l, int num_pages_pool, int block_size,
-    int max_blocks, int pages_per_split, int n_splits, int hq, int g, int n_chunks,
+    int max_blocks, int pages_per_split, int n_splits, int hq, int g, int n_chunks, int dh,
     float scale) {
   using Tiles = SplitTiles<T, D>;
   using Row = RowLayout<T, D>;
@@ -258,7 +286,7 @@ paged_split_kernel(
 
   T* k_s = reinterpret_cast<T*>(smem);
   T* v_s = k_s + (size_t)pages_per_split * block_size * Row::kRowElems;
-  const size_t page_elems = (size_t)block_size * D;
+  const size_t page_elems = (size_t)block_size * dh;  // the pool's rows hold dh values
   const T* k_head = k_pages + (size_t)kh * num_pages_pool * page_elems;
   const T* v_head = v_pages + (size_t)kh * num_pages_pool * page_elems;
   const int* table_row = tables + (size_t)b * max_blocks + first_page;
@@ -274,26 +302,47 @@ paged_split_kernel(
     const int pl = (r0 + lane) / block_size;
     const long long row_off =
         (long long)__shfl_sync(0xffffffffu, my_page, (pl - p0) & 31) * (long long)page_elems +
-        (long long)(r0 + lane - pl * block_size) * D;
+        (long long)(r0 + lane - pl * block_size) * dh;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const T* src = half ? v_head : k_head;
       T* dst = half ? v_s : k_s;
+      if (dh == D) {
 #pragma unroll
-      for (int it = 0; it < Row::kChunks; ++it) {  // 32 rows of kChunks chunks, 32 lanes
-        const int x = lane + 32 * it;
-        const int rr = x / Row::kChunks, c = x % Row::kChunks;
-        const long long off = __shfl_sync(0xffffffffu, row_off, rr);
-        if (r0 + rr < rows) cp_async16(dst + Row::at(r0 + rr, c), src + off + c * Row::kVec);
+        for (int it = 0; it < Row::kChunks; ++it) {  // 32 rows of kChunks chunks, 32 lanes
+          const int x = lane + 32 * it;
+          const int rr = x / Row::kChunks, c = x % Row::kChunks;
+          const long long off = __shfl_sync(0xffffffffu, row_off, rr);
+          if (r0 + rr < rows) cp_async16(dst + Row::at(r0 + rr, c), src + off + c * Row::kVec);
+        }
+      } else {
+        // a head dim between the kernel's: rows of dh values in pieces of
+        // the largest power of two (at most 16 bytes) that divides a row's
+        // bytes, so every piece is aligned; columns dh..D-1 are zeros
+        const int row_bytes = dh * (int)sizeof(T);
+        const int piece = min(16, row_bytes & -row_bytes);
+        const int per = piece / (int)sizeof(T), pieces = dh / per;
+        for (int it = 0; it < pieces; ++it) {  // 32 rows of `pieces` pieces, 32 lanes
+          const int x = lane + 32 * it;
+          const int rr = x / pieces, c = x % pieces * per;
+          const long long off = __shfl_sync(0xffffffffu, row_off, rr);
+          if (r0 + rr < rows)
+            copy_piece(dst + Row::at(r0 + rr, c / Row::kVec) + c % Row::kVec, src + off + c,
+                       piece);
+        }
+        for (int x = lane; x < 32 * (D - dh); x += 32) {
+          const int rr = x / (D - dh), c = dh + x % (D - dh);
+          if (r0 + rr < rows) store(dst + Row::at(r0 + rr, c / Row::kVec) + c % Row::kVec, 0.f);
+        }
       }
       cp_async_commit();
     }
   }
 
-  // the chunk's query rows in float32; rows gc..G-1 are zeros
+  // the chunk's query rows in float32; rows gc..G-1 and columns dh..D-1 are zeros
   for (int x = tid; x < G * D; x += Tiles::kThreads) {
-    const int h = x / D;
-    q_s[x] = h < gc ? to_float(q[q_row0 * D + x]) : 0.f;
+    const int h = x / D, d = x % D;
+    q_s[x] = h < gc && d < dh ? to_float(q[(q_row0 + h) * dh + d]) : 0.f;
   }
   __syncthreads();
 
@@ -428,7 +477,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(32 * kCombineWarps) paged_combine_kernel(
     const float* __restrict__ ws_acc, const float* __restrict__ ws_m,
     const float* __restrict__ ws_l, const int* __restrict__ lengths, T* __restrict__ out,
-    int n_rows, int hq, int block_size, int max_blocks, int pages_per_split, int n_splits) {
+    int n_rows, int hq, int block_size, int max_blocks, int pages_per_split, int n_splits,
+    int dh) {
   constexpr int kCols = ColsPerLane<D>::value;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kCombineWarps + (threadIdx.x >> 5);  // b * hq + h
@@ -463,7 +513,8 @@ __global__ void __launch_bounds__(32 * kCombineWarps) paged_combine_kernel(
   if (lane_cols) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) store(out + (size_t)row * D + lane * kCols + c, a[c] * inv);
+    for (int c = 0; c < kCols; ++c)
+      if (lane * kCols + c < dh) store(out + (size_t)row * dh + lane * kCols + c, a[c] * inv);
   }
 }
 
@@ -475,7 +526,7 @@ int split_pages(int BS) {
 template <typename T, int D, int G>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* tables,
                    const int* lengths, void* out, float* ws, int B, int Hkv, int NB, int BS,
-                   int max_blocks, int n_splits, int g, cudaStream_t stream) {
+                   int max_blocks, int n_splits, int g, int dh, cudaStream_t stream) {
   using Tiles = SplitTiles<T, D>;
   const int pps = split_pages<T, D>(BS);
   if (n_splits < 1 || n_splits > 65535 || (long long)n_splits * pps < max_blocks)
@@ -498,34 +549,35 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* table
   float* ws_l = ws_m + parts;
   kernel<<<dim3(B, Hkv * n_chunks, n_splits), Tiles::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), tables,
-      lengths, ws_acc, ws_m, ws_l, NB, BS, max_blocks, pps, n_splits, hq, g, n_chunks,
-      1.0f / sqrtf((float)D));
+      lengths, ws_acc, ws_m, ws_l, NB, BS, max_blocks, pps, n_splits, hq, g, n_chunks, dh,
+      1.0f / sqrtf((float)dh));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int n_rows = B * hq;
   paged_combine_kernel<T, D><<<(n_rows + kCombineWarps - 1) / kCombineWarps,
                                32 * kCombineWarps, 0, stream>>>(
       ws_acc, ws_m, ws_l, lengths, static_cast<T*>(out), n_rows, hq, BS, max_blocks, pps,
-      n_splits);
+      n_splits, dh);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_group(const void* q, const void* k, const void* v, const int* tables,
                          const int* lengths, void* out, float* ws, int B, int Hkv, int NB,
-                         int BS, int max_blocks, int n_splits, int g, cudaStream_t stream) {
+                         int BS, int max_blocks, int n_splits, int g, int dh,
+                         cudaStream_t stream) {
   if (g == 1)
     return launch<T, D, 1>(q, k, v, tables, lengths, out, ws, B, Hkv, NB, BS, max_blocks,
-                           n_splits, g, stream);
+                           n_splits, g, dh, stream);
   if (g == 2)
     return launch<T, D, 2>(q, k, v, tables, lengths, out, ws, B, Hkv, NB, BS, max_blocks,
-                           n_splits, g, stream);
+                           n_splits, g, dh, stream);
   if (g <= 4)
     return launch<T, D, 4>(q, k, v, tables, lengths, out, ws, B, Hkv, NB, BS, max_blocks,
-                           n_splits, g, stream);
+                           n_splits, g, dh, stream);
   // a group above 8 runs as chunks of 8 query heads on the grid
   return launch<T, D, kMaxG>(q, k, v, tables, lengths, out, ws, B, Hkv, NB, BS, max_blocks,
-                             n_splits, g, stream);
+                             n_splits, g, dh, stream);
 }
 
 }  // namespace
@@ -551,16 +603,19 @@ extern "C" int paged_decode_split_pages(int BS, int D, int dtype) {
   return 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. workspace: float32, B * Hq * n_splits *
-// (D + 2) values. Shapes are checked by the Python wrapper; what the kernel
-// cannot take is refused here as well.
+// dtype: 0 = float32, 1 = bfloat16. D is the kernel's head dim (one of the
+// instantiated ones), dh the pool's and q's (1..D): the kernel reads rows of
+// dh values, scales by 1/sqrt(dh) and writes dh columns. workspace: float32,
+// B * Hq * n_splits * (D + 2) values. Shapes are checked by the Python
+// wrapper; what the kernel cannot take is refused here as well.
 extern "C" int paged_decode_attention_launch(const void* q, const void* k_pages,
                                              const void* v_pages, const void* tables,
                                              const void* lengths, void* out, void* workspace,
                                              int B, int Hkv, int NB, int BS, int max_blocks,
-                                             int n_splits, int g, int D, int dtype,
+                                             int n_splits, int g, int D, int dh, int dtype,
                                              void* stream) {
-  if (B <= 0 || Hkv <= 0 || Hkv > 65535 || g < 1 || BS < 1 || BS > kMaxBS || max_blocks < 1)
+  if (B <= 0 || Hkv <= 0 || Hkv > 65535 || g < 1 || BS < 1 || BS > kMaxBS || max_blocks < 1 ||
+      dh < 1 || dh > D)
     return (int)cudaErrorInvalidValue;
   const int* t = static_cast<const int*>(tables);
   const int* l = static_cast<const int*>(lengths);
@@ -569,7 +624,7 @@ extern "C" int paged_decode_attention_launch(const void* q, const void* k_pages,
 #define PAGED_DISPATCH(T, DIM)                                                              \
   if (D == DIM)                                                                             \
     return (int)launch_group<T, DIM>(q, k_pages, v_pages, t, l, out, ws, B, Hkv, NB, BS,    \
-                                     max_blocks, n_splits, g, s);
+                                     max_blocks, n_splits, g, dh, s);
 #define PAGED_DISPATCH_DIMS(T)                                                        \
   PAGED_DISPATCH(T, 16) PAGED_DISPATCH(T, 32) PAGED_DISPATCH(T, 48) PAGED_DISPATCH(T, 64) \
   PAGED_DISPATCH(T, 80) PAGED_DISPATCH(T, 96) PAGED_DISPATCH(T, 128) PAGED_DISPATCH(T, 256)

@@ -64,18 +64,6 @@ class LlamaConfig:
     # weight products (aten.mm outputs) and recompute the rest
     remat_policy: str = "full"
 
-    def __post_init__(self):
-        # the flash kernels take head dims up to 128; a model that
-        # auto_attention could send to them (a causal sequence of
-        # FLASH_MIN_SEQ tokens fits max_seq_len) is refused here, not at the
-        # first kernel call. Serving at shorter context takes any head dim
-        # the paged kernel takes.
-        if self.hd > 128 and self.max_seq_len >= FLASH_MIN_SEQ:
-            raise NotImplementedError(
-                f"head dim {self.hd} > 128 at max_seq_len {self.max_seq_len} >= "
-                f"{FLASH_MIN_SEQ}: the flash kernels take head dims up to 128 (ROADMAP "
-                "queue 3 item 1)")
-
     @property
     def hd(self) -> int:
         return self.head_dim or self.hidden_size // self.num_heads

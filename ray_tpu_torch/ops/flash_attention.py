@@ -22,15 +22,15 @@ lse and delta ``[B, Hq, S]`` float32. The kernels read q/k/v/dO through
 their strides, so the model's tensors go in without a copy, and mask the
 ragged sequence edge themselves: no KV repeat and no sequence padding.
 
-The kernels are built for head dims 64 and 128. Any other head dim up to
-128 is zero-padded to the next of the two (``pad_head_dim``, one copy of
-each input) and the outputs are sliced back: zero columns leave Q K^T
+The kernels are built for head dims 64, 128 and 256. Any other head dim up
+to 256 is zero-padded to the next of the three (``pad_head_dim``, one copy
+of each input) and the outputs are sliced back: zero columns leave Q K^T
 unchanged and give zero columns of O, dQ, dK and dV, so the result is exact
 as long as the scale stays 1/sqrt of the caller's head dim, which the
-launchers are given. Head dims above 128 are not taken (ROADMAP queue 3
-item 1: the dK/dV kernel keeps two 16 x D float32 accumulators a lane-row
-in registers, 256 a thread at D 256), and ``models.llama.LlamaConfig``
-refuses such a model up front where ``auto_attention`` could send it here.
+launchers are given. At D 256 the bf16 kernels split the output columns
+between two CTAs a head (the source says why: a thread's accumulators would
+not fit its 255 registers otherwise). Head dims above 256 (and 0) are
+refused.
 
 Each of ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` runs its
 kernel on CUDA tensors and raises on anything the kernel cannot take; CPU
@@ -58,7 +58,7 @@ bwd_dq_launches = 0   # ... by flash_bwd_dq
 bwd_dkv_launches = 0  # ... by flash_bwd_dkv
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_HEAD_DIMS = (64, 128)  # what the kernels are built for; others are padded
+_KERNEL_HEAD_DIMS = (64, 128, 256)  # what the kernels are built for; others are padded
 
 
 # ---------------------------------------------------------------- plain versions
@@ -160,8 +160,7 @@ def _check(name, q, k, v, *same_as_q):
         if t.shape != q.shape:
             raise ValueError(f"{name}: dO {tuple(t.shape)} does not match q {tuple(q.shape)}")
     if not 0 < D <= _KERNEL_HEAD_DIMS[-1]:
-        raise ValueError(f"{name}: head dim {D} must be in 1..{_KERNEL_HEAD_DIMS[-1]} "
-                         f"(ROADMAP queue 3 item 1)")
+        raise ValueError(f"{name}: head dim {D} must be in 1..{_KERNEL_HEAD_DIMS[-1]}")
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"{name}: Hq {Hq} is not a multiple of Hkv {Hkv}")
     if Hq > 65535 or B > 65535:
@@ -170,7 +169,7 @@ def _check(name, q, k, v, *same_as_q):
 
 
 def kernel_head_dim(D):
-    """The head dim the kernels run for a caller's D: the next of 64, 128."""
+    """The head dim the kernels run for a caller's D: the next of 64, 128, 256."""
     return next(d for d in _KERNEL_HEAD_DIMS if d >= D)
 
 

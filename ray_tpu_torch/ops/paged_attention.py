@@ -21,9 +21,17 @@ the same computation in plain PyTorch. ``launches`` counts wrapper calls
 that launched the kernel pair. It reads nothing back from the card: the
 number of splits comes from the table's width, not from ``lengths``.
 
-Shapes: the kernel is built for head dims 16, 32, 48, 64, 80, 96, 128 and
-256 (``check_shape`` raises on any other, so an engine can refuse a model
-up front with the kernel's own message), any group and any page size:
+Shapes: any head dim in 1..256 (``check_shape`` raises outside it, so an
+engine can refuse a model up front with the kernel's own message), any
+group and any page size:
+
+- the kernel is built for head dims 16, 32, 48, 64, 80, 96, 128 and 256; a
+  head dim between them runs on the next one up (``kernel_head_dim``) with
+  the caller's head dim passed at run time: the kernel steps through the
+  pool's rows of that many values, copies each row in the widest aligned
+  pieces its length allows, zero-fills the columns above it in shared
+  memory, scales by 1/sqrt of it and writes that many output columns. The
+  pool is not padded, so a PD handoff carries the model's own head dim.
 
 - a group above 8 query heads a kv head is cut into chunks of at most 8 on
   the kernel's grid (``Hkv * n_chunks`` CTAs along y, one launch pair),
@@ -141,15 +149,22 @@ def _split_ref_chunk(q4, k_pages, v_pages, tables, lengths, pages_per_split):
 
 
 def check_shape(Hq, Hkv, D, block_size):
-    """Raise ValueError unless the kernel takes this head dim, group
+    """Raise ValueError unless the kernel takes this head dim (1..256), group
     (Hq // Hkv, any whole number) and page size (any)."""
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"paged_decode_attention: head dim {D} not in {_HEAD_DIMS}")
+    if not 0 < D <= _HEAD_DIMS[-1]:
+        raise ValueError(f"paged_decode_attention: head dim {D} must be in "
+                         f"1..{_HEAD_DIMS[-1]}")
     if Hkv < 1 or Hq < Hkv or Hq % Hkv:
         raise ValueError(f"paged_decode_attention: Hq {Hq} must be a whole number of "
                          f"times Hkv {Hkv}")
     if block_size < 1:
         raise ValueError(f"paged_decode_attention: block size {block_size} must be >= 1")
+
+
+def kernel_head_dim(D: int) -> int:
+    """The head dim of the kernel that serves a caller's ``D``: the next
+    instantiated one at or above it."""
+    return next(d for d in _HEAD_DIMS if d >= D)
 
 
 def sub_page_size(block_size: int) -> int:
@@ -224,9 +239,10 @@ def _split_pages(lib, block_size, head_dim, dtype) -> int:
 
 def pages_per_split(block_size, head_dim, dtype) -> int:
     """Pages one CTA of the kernel takes at this page size (at most 64: a
-    larger page is read as ``sub_page_size`` pages), head dim and dtype
-    (builds the kernel if it is not built)."""
-    return _split_pages(_build.load("paged_attention"), block_size, head_dim, dtype)
+    larger page is read as ``sub_page_size`` pages), head dim (that of the
+    kernel serving it) and dtype (builds the kernel if it is not built)."""
+    return _split_pages(_build.load("paged_attention"), block_size,
+                        kernel_head_dim(head_dim), dtype)
 
 
 def paged_decode_attention(q, k_pages, v_pages, tables, lengths):
@@ -246,17 +262,18 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths):
     Hkv, NB, BS, _ = k_pages.shape
     lib = _build.load("paged_attention")
     max_blocks = tables.shape[1]
-    n_splits = -(-max_blocks // _split_pages(lib, BS, D, q.dtype))
-    workspace = torch.empty(B * Hq * n_splits * (D + 2), dtype=torch.float32, device=q.device)
+    Dk = kernel_head_dim(D)
+    n_splits = -(-max_blocks // _split_pages(lib, BS, Dk, q.dtype))
+    workspace = torch.empty(B * Hq * n_splits * (Dk + 2), dtype=torch.float32, device=q.device)
     fn = lib.paged_decode_attention_launch
     if fn.argtypes is None:  # pointers and the stream as void*, sizes as int
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), tables.data_ptr(),
                 lengths.data_ptr(), out.data_ptr(), workspace.data_ptr(), B, Hkv, NB, BS,
-                max_blocks, n_splits, Hq // Hkv, D, _DTYPES[q.dtype], stream)
+                max_blocks, n_splits, Hq // Hkv, Dk, D, _DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention: kernel launch failed (cudaError {rc})")
     with _launches_lock:

@@ -51,7 +51,8 @@ class DeploymentConfig:
 
 # field -> (its default, the ROADMAP item that brings it)
 _NOT_PORTED = {
-    "compiled_dispatch": (False, "ROADMAP queue 1 item 4 (compiled dispatch)"),
+    "compiled_dispatch": (False, "ROADMAP queue 1 item 8 (compiled graphs, which "
+                                 "serve's compiled dispatch is built on)"),
 }
 # the request_router names serve.kv_router.make_router knows
 REQUEST_ROUTERS = ("pow2", "kv_aware")

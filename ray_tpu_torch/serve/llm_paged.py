@@ -25,7 +25,10 @@ exists only as torch tensors.
 
 A handoff that carries a request anatomy id (``"_rid"``) has its
 ``decode_first_token`` stamped by the first decode step that appends a
-token for it (serve/anatomy.py). The ``"device"`` and ``"plane"``
+token for it (serve/anatomy.py). A serving replica may hand the pages over
+as ``"_pulled": (kv, ack)`` in place of ``"kv"``, as the reference's decode
+replica hands over what it pulled; ``ack()`` runs once they are in the
+pool. The ``"device"`` and ``"plane"``
 transfers raise at construction.
 """
 
@@ -345,7 +348,13 @@ class PagedLLMEngine(LLMEngine):
             # decode side saturated: requeue the op for a later pass
             self._ops.put(("attach", payload, fut))
             return None
-        kv = handoff.get("kv")
+        kv, ack = handoff.get("kv"), None
+        pulled = handoff.get("_pulled")
+        if kv is None and pulled is not None:
+            # pages a serving replica holds for this request, with the
+            # callback that releases them, fired once they land in the pool
+            # (serve/pd.py's decode side counts its live handoffs by it)
+            kv, ack = pulled
         if kv is None:
             raise NotImplementedError(
                 "the handoff carries no host KV pages ('kv'): the 'device' and 'plane' "
@@ -383,6 +392,8 @@ class PagedLLMEngine(LLMEngine):
         except BaseException:
             self.allocator.free(block_ids)
             raise
+        if ack is not None:
+            ack()  # the pages landed in the pool
         rid = handoff.get("_rid")
         if rid is not None:
             self._anatomy_pending[slot] = rid

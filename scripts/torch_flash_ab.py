@@ -39,9 +39,10 @@ head dims 64 and 128, where that argument equals D. Prints JSON lines:
   tokens, a 128-page table) at chip_smoke's main-path lengths and at its
   ``KERNEL_LENGTHS``, and with every row empty (what a call costs with no
   key to read), in turns (A, B, ..., B, A), L2 flushed before each launch,
-  beside SDPA over pre-gathered KV and the byte bound. A source
-  from before split-K (no workspace, no split count) is called without
-  those two arguments, as one split.
+  beside SDPA over pre-gathered KV and the byte bound. A source from
+  before the run-time head dim is called without it, and one from before
+  split-K (no workspace, no split count) also without those two arguments,
+  as one split.
 """
 
 from __future__ import annotations
@@ -93,18 +94,24 @@ class _OldLauncherLib:
         return self.launchers.setdefault(name, _WithoutScaleDim(getattr(self.lib, name)))
 
 
-class _WithoutSplits:
-    """The paged launcher of a source from before split-K, called with this
-    checkout's arguments less the workspace pointer and the split count."""
+class _WithoutArgs:
+    """The paged launcher of an older source, called with this checkout's
+    arguments less those at ``drop``: the caller's head dim (15, a source
+    from before any head dim in 1..256; the calls here are at D 128, where
+    it equals the kernel's), and before split-K also the workspace pointer
+    (6) and the split count (12)."""
 
-    def __init__(self, fn):
-        self.fn, self.argtypes, self.restype = fn, None, None
+    def __init__(self, fn, drop):
+        self.fn, self.drop, self.argtypes, self.restype = fn, drop, None, None
+
+    def _kept(self, seq):
+        return [x for i, x in enumerate(seq) if i not in self.drop]
 
     def __call__(self, *args):
         if self.fn.argtypes is None:
             self.fn.restype = self.restype
-            self.fn.argtypes = self.argtypes[:6] + self.argtypes[7:12] + self.argtypes[13:]
-        return self.fn(*args[:6], *args[7:12], *args[13:])
+            self.fn.argtypes = self._kept(self.argtypes)
+        return self.fn(*self._kept(args))
 
 
 class _OneSplit:
@@ -117,9 +124,10 @@ class _OneSplit:
 
 
 class _OldPagedLib:
-    def __init__(self, lib: ctypes.CDLL):
-        self.paged_decode_attention_launch = _WithoutSplits(lib.paged_decode_attention_launch)
-        self.paged_decode_split_pages = _OneSplit()
+    def __init__(self, lib: ctypes.CDLL, split_k: bool):
+        self.paged_decode_attention_launch = _WithoutArgs(
+            lib.paged_decode_attention_launch, {15} if split_k else {6, 12, 15})
+        self.paged_decode_split_pages = lib.paged_decode_split_pages if split_k else _OneSplit()
 
 
 def build(card: str, sources: list[str], name: str = "flash_attention") -> dict:
@@ -138,7 +146,8 @@ def build(card: str, sources: list[str], name: str = "flash_attention") -> dict:
             raise RuntimeError(f"nvcc failed for {src}:\n{ptxas[src]}")
         lib, text = ctypes.CDLL(outs[src]), Path(src).read_bytes()
         if name == "paged_attention":
-            libs[src] = lib if b"paged_decode_split_pages" in text else _OldPagedLib(lib)
+            libs[src] = (lib if b"int dh," in text else
+                         _OldPagedLib(lib, b"paged_decode_split_pages" in text))
         else:
             libs[src] = lib if b"scale_dim" in text else _OldLauncherLib(lib)
     for src, log in ptxas.items():

@@ -138,20 +138,43 @@ def test_head_dim_off_the_multiples_of_8_is_padded_to_128(causal):
 
 
 def test_llama_config_past_head_dim_128_is_refused_at_build():
-    """A model auto_attention could send to the flash kernels (max_seq_len
-    of at least FLASH_MIN_SEQ) with a head dim above 128 raises when its
-    config is made; a shorter context, served through the paged kernel
-    only, is taken."""
+    """Since the kernels take head dims up to 256, a config with a head dim
+    above 128 builds at any max_seq_len, as the JAX LlamaConfig does; what
+    the wrappers still refuse is a head dim past 256, or 0."""
     from ray_tpu_torch.models import llama
 
-    with pytest.raises(NotImplementedError, match="queue 3 item 1"):
-        llama.LlamaConfig(hidden_size=2048, num_heads=8, num_kv_heads=4, head_dim=256)
-    with pytest.raises(NotImplementedError, match="queue 3 item 1"):
-        llama.LlamaConfig(hidden_size=256, num_heads=1, num_kv_heads=1,
-                          max_seq_len=llama.FLASH_MIN_SEQ)
-    assert llama.LlamaConfig(hidden_size=2048, num_heads=8, num_kv_heads=4, head_dim=256,
-                             max_seq_len=llama.FLASH_MIN_SEQ - 1).hd == 256
+    assert llama.LlamaConfig(hidden_size=2048, num_heads=8, num_kv_heads=4, head_dim=256).hd == 256
+    assert llama.LlamaConfig(hidden_size=256, num_heads=1, num_kv_heads=1,
+                             max_seq_len=llama.FLASH_MIN_SEQ).hd == 256
     assert llama.LlamaConfig(hidden_size=2048, num_heads=16, head_dim=128).hd == 128
+    for D in (264, 0):
+        q, k, v, _ = map(torch.from_numpy, _inputs(1, 8, 2, 2, D, seed=0))
+        with pytest.raises(ValueError, match="head dim"):
+            tfa._check("flash_fwd", q, k, v)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [160, 256])
+def test_plain_kernels_match_jax_kernels_above_head_dim_128(causal, D):
+    """Head dims the D 256 kernels serve (160 zero-padded to 256, 256 as it
+    is): the plain forward and both plain backward functions, at the
+    padded width with the caller's scale and sliced back, against the JAX
+    kernels in interpret mode on the same inputs (S 64, two query heads on
+    one kv head), the backward fed JAX's lse and delta."""
+    assert tfa.kernel_head_dim(D) == 256
+    B, S, Hq, Hkv = 1, 64, 2, 1
+    q, k, v, do = _inputs(B, S, Hq, Hkv, D, seed=5)
+    j_o, j_lse, j_delta, j_dq, j_dk, j_dv = _jax_kernels(q, k, v, do, causal)
+    pq, pk, pv, pdo = (tfa.pad_head_dim(torch.from_numpy(x), 256) for x in (q, k, v, do))
+    scale = 1.0 / math.sqrt(D)
+    o, lse = tfa.flash_fwd_ref(pq, pk, pv, causal, scale=scale)
+    np.testing.assert_allclose(o[..., :D].numpy(), j_o, atol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), j_lse.numpy(), atol=2e-5)
+    dq = tfa.flash_bwd_dq_ref(pq, pk, pv, pdo, j_lse, j_delta, causal, scale=scale)
+    dk, dv = tfa.flash_bwd_dkv_ref(pq, pk, pv, pdo, j_lse, j_delta, causal, scale=scale)
+    for got, want in zip((o, dq, dk, dv), (j_o, j_dq, j_dk, j_dv)):
+        assert not got[..., D:].any()
+        np.testing.assert_allclose(got[..., :D].numpy(), want, atol=2e-5)
 
 
 def _check_padded(causal, D):

@@ -65,7 +65,13 @@ def _paged_inputs(device, dtype, B, Hkv, g, D, BS, max_blocks, lengths, seed=0):
                                     # head dims 48/80/96/256, groups above 8, pages above 64
                                     (4, 48, 16), (2, 80, 16), (4, 96, 16), (4, 256, 16),
                                     (8, 256, 64), (16, 128, 16), (12, 64, 16), (32, 48, 8),
-                                    (4, 128, 128), (2, 64, 96), (1, 256, 128)])
+                                    (4, 128, 128), (2, 64, 96), (1, 256, 128),
+                                    # head dims between the built ones: rows of 16-byte
+                                    # chunks (40, 112, 200), of 8 or 4 bytes (36, 98),
+                                    # odd bf16 rows of 2-byte pieces (37, 255, 1)
+                                    (4, 40, 16), (4, 112, 16), (4, 200, 16), (4, 36, 16),
+                                    (2, 98, 8), (4, 37, 16), (1, 255, 16), (8, 1, 4),
+                                    (16, 40, 128)])
 def test_paged_kernel_matches_plain(cuda, dtype, g, D, BS):
     """Ragged rows, a dead row, a full table of at least 128 pages, and rows
     one under, at and one over the edges of the first two splits."""
@@ -104,7 +110,7 @@ def test_paged_kernel_needs_no_host_sync(cuda):
 
 @pytest.mark.gpu
 def test_paged_kernel_rejects_what_it_cannot_take(cuda):
-    q, k, v, tables, lengths = _paged_inputs(cuda, torch.float32, 2, 2, 2, 40, 8, 3, [3, 5])
+    q, k, v, tables, lengths = _paged_inputs(cuda, torch.float32, 2, 2, 2, 264, 8, 3, [3, 5])
     with pytest.raises(ValueError, match="head dim"):
         pa.paged_decode_attention(q, k, v, tables, lengths)
     q, k, v, tables, lengths = _paged_inputs(cuda, torch.float32, 2, 2, 2, 64, 8, 3, [3, 5])
@@ -214,8 +220,8 @@ def test_tiny_openai_app_over_http_on_the_card_matches_the_cpu(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("change,match", [
-    (dict(hidden_size=160), "head dim"),                  # head dim 40
-    (dict(head_dim=200), "head dim")])
+    (dict(head_dim=264), "head dim"),                     # past 256
+    (dict(num_heads=6, num_kv_heads=4), "times Hkv")])    # no whole group
 def test_paged_engine_refuses_what_the_kernel_cannot_take(cuda, change, match):
     cfg = dataclasses.replace(llama.LlamaConfig.tiny(), **change)
     with pytest.raises(ValueError, match=match):
@@ -227,7 +233,9 @@ def test_paged_engine_refuses_what_the_kernel_cannot_take(cuda, change, match):
 @pytest.mark.parametrize("change,block_size", [
     (dict(num_heads=16, num_kv_heads=1, head_dim=48), 96),   # group 16, pages of 96
     (dict(head_dim=256), 128),                               # head dim 256, pages of 128
-    (dict(num_heads=8, num_kv_heads=2, head_dim=80), 16)])
+    (dict(num_heads=8, num_kv_heads=2, head_dim=80), 16),
+    (dict(hidden_size=160), 16),                              # head dim 40
+    (dict(head_dim=36), 16), (dict(head_dim=200), 32), (dict(head_dim=42), 8)])
 def test_wide_shape_paged_engine_on_the_card_matches_the_cpu(cuda, change, block_size):
     """Shapes the paged kernel now takes, on LlamaConfig.tiny() widths in
     float32: every decode step through the kernel on the card, the CPU
@@ -341,7 +349,7 @@ def test_spec_decode_draft_runs_the_kernel_at_d64_group4(cuda):
 
 @pytest.mark.gpu
 def test_spec_engine_refuses_a_draft_the_kernel_cannot_take(cuda):
-    dcfg = dataclasses.replace(llama.LlamaConfig.tiny(), hidden_size=160)  # head dim 40
+    dcfg = dataclasses.replace(llama.LlamaConfig.tiny(), head_dim=264)  # past 256
     with pytest.raises(ValueError, match="head dim"):
         SpecDecodeLLMEngine(SpecDecodeConfig(model_config=llama.LlamaConfig.tiny(),
                                              draft_model_config=dcfg, max_batch_size=2,
@@ -616,8 +624,40 @@ def test_flash_backward_through_function(cuda, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", [
+    (2, 129, 8, 2, 256), (1, 1, 4, 4, 256), (1, 127, 4, 1, 256), (2, 33, 8, 8, 256),
+    (1, 1000, 8, 2, 256), (1, 2047, 4, 2, 256),
+    # zero-padded to 256: D 192 (the padded check the smoke runs), 136, 200
+    (2, 129, 8, 2, 192), (1, 300, 4, 2, 136), (1, 65, 4, 4, 200)])
+def test_flash_kernels_above_head_dim_128(cuda, dtype, causal, B, S, Hq, Hkv, D):
+    """The D 256 kernels (bf16: two CTAs a head, each accumulating half of
+    the output columns; float32: q tiles of 32) against their plain versions
+    at S around the tiles' edges, g 1, 2, 4, and head dims padded to 256."""
+    q, k, v, do = _flash_inputs(cuda, dtype, B, S, Hq, Hkv, D)
+    before = (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert o.shape == q.shape
+    assert_flash_close(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0.0)
+    delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
+    torch.cuda.synchronize()
+    assert_flash_close(dq, fa.flash_bwd_dq_ref(q, k, v, do, lse_ref, delta, causal))
+    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(q, k, v, do, lse_ref, delta, causal)
+    assert_flash_close(dk, dk_ref)
+    assert_flash_close(dv, dv_ref)
+    assert (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == tuple(
+        n + 1 for n in before)
+
+
+@pytest.mark.gpu
 def test_flash_rejects_what_it_cannot_take(cuda):
-    for D in (136, 256):  # past 128 (ROADMAP queue 3 item 1)
+    for D in (264, 320):  # past 256
         q, k, v, _ = _flash_inputs(cuda, torch.float32, 1, 16, 2, 2, D)
         with pytest.raises(ValueError, match="head dim"):
             fa.flash_fwd(q, k, v, True)
@@ -646,3 +686,34 @@ def test_train_step_goes_through_flash_kernels(cuda):
     assert (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == (
         before[0] + 3 * 2 * L, before[1] + 3 * L, before[2] + 3 * L)
     assert state.step == 3 and losses[-1] < losses[0]
+
+
+@pytest.mark.gpu
+def test_head_dim_256_trains_through_flash_kernels(cuda):
+    """A Gemma-style head dim (256) at S 1024: the config builds, three
+    train steps go through the three kernels at their D 256 instantiations,
+    and the loss and grad norm through them match dense attention's from
+    the same parameters."""
+    cfg = llama.LlamaConfig(vocab_size=512, hidden_size=512, intermediate_size=1024,
+                            num_layers=2, num_heads=2, num_kv_heads=1, head_dim=256,
+                            max_seq_len=8192, dtype=torch.bfloat16, remat=True)
+    opt = spmd.make_optimizer(1e-3, warmup=1)
+    state = spmd.init_state(cfg, torch.Generator(cuda).manual_seed(0), opt, device=cuda)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 1024))
+    targets = np.concatenate([tokens[:, 1:], np.full((1, 1), -100)], axis=1)
+    batch = (torch.from_numpy(tokens).to(cuda), torch.from_numpy(targets).to(cuda))
+    losses = {}
+    for label, attn_fn in (("flash", None), ("dense", llama.attention)):
+        losses[label] = llama.loss_fn(state.params, *batch, cfg, attn_fn).item()
+    assert abs(losses["flash"] - losses["dense"]) <= 1e-4 * abs(losses["dense"]), losses
+    step = spmd.make_train_step(cfg, opt, device=cuda)
+    before = (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    seen = []
+    for _ in range(3):
+        state, m = step(state, *batch)
+        seen.append(m["loss"].item())
+        assert np.isfinite(m["grad_norm"].item())
+    L = cfg.num_layers
+    assert (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == (
+        before[0] + 3 * 2 * L, before[1] + 3 * L, before[2] + 3 * L)
+    assert seen[-1] < seen[0]

@@ -109,6 +109,21 @@ def test_groups_above_eight_match_jax_kernel(g):
     np.testing.assert_allclose(split.numpy(), ref, atol=2e-5)
 
 
+@pytest.mark.parametrize("D", [36, 40, 200])
+@pytest.mark.parametrize("g", [1, 4])
+def test_head_dims_between_the_built_ones_match_jax_kernel(D, g):
+    """Head dims no kernel is built for (the card runs them on the next one
+    up, 48 or 256, with the caller's head dim at run time): the plain
+    version and the split arithmetic against the Pallas kernel, and the
+    head dim the kernel that serves them is built for."""
+    assert port.kernel_head_dim(D) == {36: 48, 40: 48, 200: 256}[D]
+    arrays = _inputs(g, [5, 17, 0, 32], B=4, D=D, BS=8, max_blocks=4)
+    ref, got = _both(arrays)
+    np.testing.assert_allclose(got, ref, atol=2e-5)
+    split = port.paged_decode_attention_split_ref(*(torch.from_numpy(a) for a in arrays), 2)
+    np.testing.assert_allclose(split.numpy(), ref, atol=2e-5)
+
+
 @pytest.mark.parametrize("BS, sub", [(128, 64), (96, 48), (200, 50), (67, 1), (64, 64)])
 def test_sub_page_size(BS, sub):
     assert port.sub_page_size(BS) == sub
@@ -135,13 +150,14 @@ def test_large_pages_through_sub_pages_match_jax_kernel(BS, g):
 
 
 def test_check_shape_takes_the_new_shapes():
-    for D in (16, 32, 48, 64, 80, 96, 128, 256):
+    for D in (16, 32, 48, 64, 80, 96, 128, 256, 1, 36, 40, 112, 200, 255):
         port.check_shape(32, 8, D, 16)
     port.check_shape(32, 2, 128, 16)   # group 16
     port.check_shape(32, 1, 64, 128)   # group 32, pages of 128
     port.check_shape(8, 8, 64, 96)
-    with pytest.raises(ValueError, match="head dim"):
-        port.check_shape(8, 2, 40, 16)
+    for D in (0, 264):  # what is still refused: a head dim outside 1..256
+        with pytest.raises(ValueError, match="head dim"):
+            port.check_shape(8, 2, D, 16)
     with pytest.raises(ValueError, match="times Hkv"):
         port.check_shape(6, 4, 64, 16)
     with pytest.raises(ValueError, match="block size"):

@@ -193,7 +193,7 @@ def test_route_prefix_conflict_rejected():
 
 
 @pytest.mark.parametrize("field, value, error, match", [
-    ("compiled_dispatch", True, NotImplementedError, "ROADMAP queue 1 item 4"),
+    ("compiled_dispatch", True, NotImplementedError, "ROADMAP queue 1 item 8"),
     ("ray_actor_options", {"isolate_process": True}, NotImplementedError,
      "ROADMAP queue 1 item 4"),
     ("ray_actor_options", {"resources": {"accelerator_slot": 1}}, NotImplementedError,

@@ -86,6 +86,26 @@ def test_tied_head_forward_and_loss_match_jax():
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
 
 
+def test_head_dim_256_config_builds_and_matches_jax():
+    """A Gemma-style head dim (256) at max_seq_len 8192 builds, as the JAX
+    config does (the flash kernels take it), and its CPU forward and loss
+    on the JAX init's weights match the JAX model's."""
+    jcfg = dataclasses.replace(jl.LlamaConfig.tiny(), num_heads=2, num_kv_heads=1,
+                               head_dim=256, max_seq_len=8192)
+    tcfg = dataclasses.replace(tl.LlamaConfig.tiny(), num_heads=2, num_kv_heads=1,
+                               head_dim=256, max_seq_len=8192)
+    assert tcfg.hd == 256
+    jparams = jl.init(jcfg, jax.random.PRNGKey(2))
+    tparams = tl.from_jax(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
+    tokens, targets = _batch(7)
+    want = jl.forward(jparams, jnp.asarray(tokens), jcfg)
+    got = tl.forward(tparams, torch.from_numpy(tokens), tcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4)
+    want = jl.loss_fn(jparams, jnp.asarray(tokens), jnp.asarray(targets), jcfg)
+    got = tl.loss_fn(tparams, torch.from_numpy(tokens), torch.from_numpy(targets), tcfg)
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
+
+
 def test_forward_with_flash_attn_fn_matches_jax(models):
     jcfg, jparams, tcfg, tparams = models
     tokens, _ = _batch(1)
