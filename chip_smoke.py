@@ -123,6 +123,17 @@
    Then the tiny float32 configs on the card against the CPU: PD and
    speculative decoding give the CPU's tokens exactly, MoE and ViT its
    logits to 2e-4.
+8. RLlib (ray_tpu_torch.rllib): each of the seven learners (PPO, IMPALA,
+   APPO, DQN, discrete SAC, continuous SAC, TQC) at the reference's default
+   widths and batch sizes, made without a device (cuda:0) and on the CPU
+   from the same seed, 5 updates on the same fixed batch: every update's
+   loss and metrics and the final parameters must agree (float32, no
+   TF32); then each learner's median update on the card and the CPU, and
+   torch.profiler's kernel launches and device-idle share an update. A
+   LearnerGroup of 2 PPO learners on the card against one learner on the
+   full batch. PPO.train() and DQN.train(), 2 iterations each, with 2 env
+   runners over NumpyCartPole (defined here: the card machine has no
+   gymnasium), sample and learn seconds apart.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {...}}. Exits non-zero, before any result, without a
@@ -135,6 +146,7 @@ import ctypes
 import dataclasses
 import gc
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -151,6 +163,7 @@ import torch
 import torch.nn.functional as F
 
 import ray_tpu_torch
+from ray_tpu_torch import rllib
 from ray_tpu_torch import serve as rt_serve
 from ray_tpu_torch.models import llama, moe, vit
 from ray_tpu_torch.ops import _build
@@ -304,6 +317,31 @@ FLASH_D256_F32_SHAPES = [(2, 300, 8, 2, 256), (1, 129, 4, 4, 192)]
 D256_LAYERS, D256_BATCH = 4, 2
 # PD app and DP attention on the main path's weights
 DP_SIZE, DP_BURST = 2, 4
+# RLlib (rllib_phase): each learner at the reference's default widths
+# (hidden (64, 64)) and batch size, on CartPole's shapes (4 observations, 2
+# actions) or Pendulum's (3 observations, 1 action dim): learner class,
+# config class, batch size, dims
+RL_LEARNERS = {
+    "ppo": (rllib.PPOLearner, rllib.PPOConfig, 128, (4, 2)),
+    "impala": (rllib.IMPALALearner, rllib.IMPALAConfig, 512, (4, 2)),
+    "appo": (rllib.APPOLearner, rllib.APPOConfig, 256, (4, 2)),
+    "dqn": (rllib.DQNLearner, rllib.DQNConfig, 64, (4, 2)),
+    "sac": (rllib.SACLearner, rllib.SACConfig, 128, (4, 2)),
+    "sac_continuous": (rllib.ContinuousSACLearner, rllib.ContinuousSACConfig, 256, (3, 1)),
+    "tqc": (rllib.TQCLearner, rllib.TQCConfig, 256, (3, 1)),
+}
+# the card against the CPU over RL_UPDATES updates from the same initial
+# parameters on the same fixed batch, float32 on both sides with matmuls at
+# "highest" (no TF32): every update's loss and metrics within rtol 1e-5 /
+# atol 1e-6 and the parameters (and targets) within 5e-6 after the last, the
+# limits tests/test_torch_rllib.py holds the port to against the JAX
+# learners (cuBLAS and the CPU's BLAS sum in other orders, as XLA does)
+RL_UPDATES, RL_TIMED_UPDATES, RL_PROFILED_UPDATES = 5, 20, 5
+RL_METRIC_TOL, RL_PARAM_ATOL = dict(rtol=1e-5, atol=1e-6), 5e-6
+# a LearnerGroup of 2 PPO learners against one learner on the full batch,
+# the reference's rtol 2e-4 / atol 2e-5 (shard gradients sum in another order)
+RL_GROUP_TOL = dict(rtol=2e-4, atol=2e-5)
+RL_TRAIN_ITERS = 2
 FLASH_OUTPUTS = {"flash_fwd": ("o",), "flash_bwd_dq": ("dq",), "flash_bwd_dkv": ("dk", "dv")}
 FLASH_KERNELS = {  # name: (TPU kernel it replaces, tensor-core products per (q, k) pair,
     #                    the CUDA kernel that runs at the trainer's shapes)
@@ -2527,6 +2565,225 @@ def tiny_models_phase(card: str) -> None:
     torch.testing.assert_close(card_["moe"][1], cpu["moe"][1], rtol=1e-5, atol=0.0)
 
 
+class NumpyCartPole:
+    """CartPole-v1 in numpy (gymnasium's classic_control/cartpole.py: Euler
+    steps of 0.02 s, force 10 N, cart 1.0 and pole 0.1 kg, pole half-length
+    0.5 m; terminated past |x| 2.4 or |theta| 12 degrees, truncated at 500
+    steps, reward 1 a step), for the card machine, which has no gymnasium."""
+
+    observation_space = types.SimpleNamespace(shape=(4,))
+    action_space = types.SimpleNamespace(n=2)
+
+    def __init__(self):
+        self.rng = np.random.default_rng()
+        self.state, self.t = np.zeros(4), 0
+
+    def reset(self, seed=None):
+        if seed is not None:
+            self.rng = np.random.default_rng(seed)
+        self.state, self.t = self.rng.uniform(-0.05, 0.05, 4), 0
+        return self.state.astype(np.float32), {}
+
+    def step(self, action):
+        x, x_dot, th, th_dot = self.state
+        force = 10.0 if action == 1 else -10.0
+        cos, sin = math.cos(th), math.sin(th)
+        temp = (force + 0.05 * th_dot ** 2 * sin) / 1.1
+        th_acc = (9.8 * sin - cos * temp) / (0.5 * (4.0 / 3.0 - 0.1 * cos ** 2 / 1.1))
+        x_acc = temp - 0.05 * th_acc * cos / 1.1
+        self.state = np.array([x + 0.02 * x_dot, x_dot + 0.02 * x_acc,
+                               th + 0.02 * th_dot, th_dot + 0.02 * th_acc])
+        self.t += 1
+        terminated = bool(abs(self.state[0]) > 2.4 or abs(self.state[2]) > 12 * 2 * math.pi / 360)
+        return self.state.astype(np.float32), 1.0, terminated, self.t >= 500, {}
+
+    def close(self) -> None:
+        pass
+
+
+def rl_batch(name: str, n: int, dims, seed: int = SEED) -> dict:
+    """A fixed batch of a learner's inputs (tests/test_torch_rllib.py's)."""
+    obs_dim, a = dims
+    r = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return r.normal(size=shape).astype(np.float32)
+
+    obs = normal(n, obs_dim)
+    if name in ("sac_continuous", "tqc"):
+        return {"obs": obs, "actions": r.uniform(-1, 1, (n, a)).astype(np.float32),
+                "rewards": normal(n), "next_obs": normal(n, obs_dim),
+                "dones": (r.random(n) < 0.1).astype(np.float32)}
+    actions = r.integers(0, a, n).astype(np.int32)
+    if name == "ppo":
+        return {"obs": obs, "actions": actions,
+                "logprobs": np.log(r.uniform(0.2, 0.8, n)).astype(np.float32),
+                "advantages": normal(n), "returns": normal(n)}
+    if name in ("impala", "appo"):
+        out = {"obs": obs, "actions": actions, "vs_targets": normal(n), "advantages": normal(n)}
+        if name == "appo":
+            out["behavior_logp"] = np.log(r.uniform(0.2, 0.8, n)).astype(np.float32)
+        return out
+    return {"obs": obs, "actions": actions, "rewards": normal(n), "next_obs": normal(n, obs_dim),
+            "dones": (r.random(n) < 0.1).astype(np.float32)}
+
+
+def rl_state(learner) -> dict:
+    """{path: numpy} of a learner's parameters and target networks."""
+    trees = {"params": learner.params}
+    for attr in ("target_params", "target"):
+        if hasattr(learner, attr):
+            trees[attr] = getattr(learner, attr)
+    return {f"{k}/{i}": leaf for k, tree in trees.items()
+            for i, leaf in enumerate(rllib.optim.tree_leaves(rllib.np_policy.to_numpy_params(tree)))}
+
+
+def rl_update_ms(learner, batch: dict, n: int) -> list[float]:
+    """Wall ms of each of n updates (an update ends reading its metrics,
+    which waits for the card)."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        learner.update(batch)
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def rl_learners_phase(card: str) -> dict:
+    """Each learner on the card against one on the CPU: RL_UPDATES updates
+    on the same batch from the same initial parameters, then the card's
+    median update, its kernel launches an update and its idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rows = {}
+    for name, (cls, cfg_cls, n, dims) in RL_LEARNERS.items():
+        on_card = cls(cfg_cls(), *dims)  # no device: cuda:0
+        on_cpu = cls(cfg_cls(), *dims, device="cpu")
+        assert on_card.device == DEVICE and all(
+            t.device == DEVICE for t in rllib.optim.tree_leaves(on_card.params)), name
+        start_card, start_cpu = rl_state(on_card), rl_state(on_cpu)
+        assert all(np.array_equal(start_card[k], start_cpu[k]) for k in start_cpu), name
+        batch = rl_batch(name, n, dims)
+        worst_metric = 0.0
+        for step in range(RL_UPDATES):
+            got, want = on_card.update(batch), on_cpu.update(batch)
+            assert set(got) == set(want), (name, sorted(got), sorted(want))
+            for k in want:
+                np.testing.assert_allclose(got[k], want[k], **RL_METRIC_TOL,
+                                           err_msg=f"{name} update {step} {k}")
+                worst_metric = max(worst_metric, abs(got[k] - want[k]) / max(abs(want[k]), 1e-12))
+        end_card, end_cpu = rl_state(on_card), rl_state(on_cpu)
+        param_err = max(float(np.abs(end_card[k] - end_cpu[k]).max()) for k in end_cpu)
+        assert param_err <= RL_PARAM_ATOL, (name, param_err)
+        rl_update_ms(on_card, batch, 3)  # warm
+        card_ms = statistics.median(rl_update_ms(on_card, batch, RL_TIMED_UPDATES))
+        cpu_ms = statistics.median(rl_update_ms(on_cpu, batch, RL_UPDATES))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            rl_update_ms(on_card, batch, RL_PROFILED_UPDATES)
+            torch.cuda.synchronize()
+        dev, _ = device_events(prof)
+        busy_ms = sum(e.self_device_time_total for e in dev) / 1e3 / RL_PROFILED_UPDATES
+        launches = sum(e.count for e in dev) / RL_PROFILED_UPDATES
+        top = sorted(dev, key=lambda e: -e.self_device_time_total)[:3]
+        rows[name] = dict(
+            batch=n, update_ms_card=card_ms, update_ms_cpu=cpu_ms,
+            device_busy_ms=busy_ms if dev else "not measured",
+            launches_per_update=launches if dev else "not measured",
+            device_idle_share=1 - busy_ms / card_ms if dev else "not measured",
+            metrics_max_rel_err=worst_metric, params_max_abs_err=param_err,
+            top=[{"name": e.key[:60], "ms_per_update": e.self_device_time_total / 1e3
+                  / RL_PROFILED_UPDATES} for e in top])
+        log(card, f"rllib learner {name}: card vs CPU over {RL_UPDATES} updates, then timed",
+            **rows[name])
+    return rows
+
+
+def rl_group_phase(card: str) -> None:
+    """A LearnerGroup of 2 PPO learners on the card against one PPO learner
+    on the card on the full batch."""
+    batch = rl_batch("ppo", 128, (4, 2))
+    single = rllib.PPOLearner(rllib.PPOConfig(seed=3), 4, 2)
+    single.update(batch)
+    group = rllib.LearnerGroup(lambda: rllib.PPOLearner(rllib.PPOConfig(seed=3), 4, 2),
+                               num_learners=2)
+    try:
+        group.update(batch)
+        got, want = (rllib.optim.tree_leaves(p) for p in (group.get_params(),
+                                                           single.get_params()))
+        err = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a, b, **RL_GROUP_TOL)
+        group_ms = statistics.median(1e3 * timed(group.update, batch)
+                                     for _ in range(RL_TIMED_UPDATES))
+        single_ms = statistics.median(rl_update_ms(single, batch, RL_TIMED_UPDATES))
+    finally:
+        group.shutdown()
+    log(card, "rllib LearnerGroup of 2 PPO learners on the card vs one on the full batch",
+        params_max_abs_err=err, group_update_ms=group_ms, single_update_ms=single_ms)
+
+
+def timed(fn, *args) -> float:
+    t0 = time.perf_counter()
+    fn(*args)
+    return time.perf_counter() - t0
+
+
+def rl_train_phase(card: str) -> None:
+    """RL_TRAIN_ITERS PPO.train() and DQN.train() iterations with 2 env
+    runners over NumpyCartPole, the learners on the card; sample seconds
+    (the runners) apart from the rest of an iteration (the learner)."""
+    builds = {
+        "PPO": rllib.PPOConfig().environment(NumpyCartPole),
+        # learning from the first iteration on (2 runners x 128 steps a fragment)
+        "DQN": rllib.DQNConfig().environment(NumpyCartPole).training(learning_starts=200),
+    }
+    for label, cfg in builds.items():
+        algo = cfg.build()
+        group = algo.runner_group if label == "PPO" else algo.runners
+        sample, sample_s = group.sample, []
+
+        def timed_sample(steps, sample=sample, sample_s=sample_s):
+            t0 = time.perf_counter()
+            out = sample(steps)
+            sample_s.append(time.perf_counter() - t0)
+            return out
+
+        group.sample = timed_sample
+        try:
+            rows = []
+            for _ in range(RL_TRAIN_ITERS):
+                t0 = time.perf_counter()
+                out = algo.train()
+                rows.append({"seconds": time.perf_counter() - t0, "sample_s": sample_s[-1],
+                             **{k: v for k, v in out.items() if isinstance(v, (int, float))}})
+        finally:
+            algo.stop()
+        assert all(t.device == DEVICE for t in rllib.optim.tree_leaves(algo.learner.params))
+        loss_key = "total_loss" if label == "PPO" else "loss"
+        assert all(math.isfinite(r[loss_key]) for r in rows), (label, rows)
+        if label == "DQN":
+            assert all(r["num_updates"] == cfg.updates_per_iter for r in rows), rows
+        log(card, f"rllib {label}.train() x {RL_TRAIN_ITERS}, 2 env runners over NumpyCartPole",
+            iterations=[{**r, "learn_s": r["seconds"] - r["sample_s"]} for r in rows])
+
+
+def rllib_phase(card: str) -> None:
+    """The RLlib core: the seven learners card vs CPU and timed, the
+    learner group, and PPO and DQN iterations with env runners."""
+    torch.set_float32_matmul_precision("highest")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    t0 = time.monotonic()
+    rl_learners_phase(card)
+    ray_tpu_torch.init()
+    try:
+        rl_group_phase(card)
+        rl_train_phase(card)
+    finally:
+        ray_tpu_torch.shutdown()
+    log(card, "rllib phase wall", seconds=time.monotonic() - t0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2604,6 +2861,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tiny_models_phase(card)
+    rllib_phase(card)
     log(card, "smoke wall", seconds=time.monotonic() - t_start, serving_seconds=t_serve,
         pd_dp_any_dim_d256_seconds=t_new,
         moe_vit_tiny_seconds=time.monotonic() - t_models,

@@ -1,0 +1,43 @@
+"""ray_tpu_torch.rllib: the online core of ray_tpu/rllib in PyTorch.
+
+Algorithms: PPO, IMPALA and APPO (on-policy / V-trace), DQN, discrete SAC,
+continuous SAC and TQC (off-policy over a replay-buffer actor), and the
+LearnerGroup (data-parallel learners with example-weighted gradient
+averaging). Env runners, the replay buffer and the learner group are thread
+actors of the port's in-process runtime, so ``ray_tpu_torch.init()`` comes
+first. The learners keep their parameters and optimizer state on the card
+(``device=None`` is ``cuda:0``; pass ``device="cpu"`` for the CPU); the env
+runners' policies stay numpy on the host, as the reference's do.
+
+``gymnasium`` is imported only where a string ``cfg.env`` is turned into an
+env; a callable env needs none (the reference imports it in every
+``__init__``). Each learner's ``from_jax(params_np)`` takes a JAX learner's
+parameter tree. Not ported yet (ROADMAP queue 1 item 6b): the offline
+algorithms (BC, MARWIL, CQL), IQL, multi-agent PPO and DreamerV3.
+"""
+
+from ray_tpu_torch.rllib.appo import APPO, APPOConfig, APPOLearner
+from ray_tpu_torch.rllib.connectors import (ClipActions, ClipObs, Connector, ConnectorPipeline,
+                                            FlattenObs, FrameStack, NormalizeObs,
+                                            UnsquashActions, pipeline)
+from ray_tpu_torch.rllib.dqn import DQN, DQNConfig, DQNLearner
+from ray_tpu_torch.rllib.env_runner import EnvRunnerGroup, Episode, SingleAgentEnvRunner
+from ray_tpu_torch.rllib.impala import IMPALA, IMPALAConfig, IMPALALearner
+from ray_tpu_torch.rllib.learner_group import LearnerGroup
+from ray_tpu_torch.rllib.ppo import PPO, PPOConfig, PPOLearner
+from ray_tpu_torch.rllib.replay_buffer import ReplayBuffer
+from ray_tpu_torch.rllib.sac import SAC, SACConfig, SACLearner
+from ray_tpu_torch.rllib.sac_continuous import (ContinuousSAC, ContinuousSACConfig,
+                                                ContinuousSACLearner)
+from ray_tpu_torch.rllib.tqc import TQC, TQCConfig, TQCLearner
+
+__all__ = ["PPO", "PPOConfig", "PPOLearner", "DQN", "DQNConfig", "DQNLearner",
+           "ReplayBuffer", "SAC", "SACConfig", "SACLearner",
+           "IMPALA", "IMPALAConfig", "IMPALALearner", "LearnerGroup",
+           "APPO", "APPOConfig", "APPOLearner",
+           "EnvRunnerGroup", "Episode", "SingleAgentEnvRunner",
+           "ContinuousSAC", "ContinuousSACConfig", "ContinuousSACLearner",
+           "TQC", "TQCConfig", "TQCLearner",
+           "Connector", "ConnectorPipeline", "FlattenObs", "ClipObs",
+           "NormalizeObs", "FrameStack", "ClipActions", "UnsquashActions",
+           "pipeline"]

@@ -717,3 +717,79 @@ def test_head_dim_256_trains_through_flash_kernels(cuda):
     assert (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == (
         before[0] + 3 * 2 * L, before[1] + 3 * L, before[2] + 3 * L)
     assert seen[-1] < seen[0]
+
+
+# RLlib learners (ray_tpu_torch.rllib) at the reference's default widths
+# and batch sizes, CartPole's or Pendulum's shapes: (learner, config, batch
+# size, (obs dim, actions or action dim))
+def _rl_cases():
+    from ray_tpu_torch import rllib
+
+    return {"ppo": (rllib.PPOLearner, rllib.PPOConfig, 128, (4, 2)),
+            "impala": (rllib.IMPALALearner, rllib.IMPALAConfig, 512, (4, 2)),
+            "appo": (rllib.APPOLearner, rllib.APPOConfig, 256, (4, 2)),
+            "dqn": (rllib.DQNLearner, rllib.DQNConfig, 64, (4, 2)),
+            "sac": (rllib.SACLearner, rllib.SACConfig, 128, (4, 2)),
+            "sac_continuous": (rllib.ContinuousSACLearner, rllib.ContinuousSACConfig, 256,
+                               (3, 1)),
+            "tqc": (rllib.TQCLearner, rllib.TQCConfig, 256, (3, 1))}
+
+
+def _rl_batch(name, n, dims, seed):
+    obs_dim, a = dims
+    r = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return r.normal(size=shape).astype(np.float32)
+
+    obs = normal(n, obs_dim)
+    if name in ("sac_continuous", "tqc"):
+        return {"obs": obs, "actions": r.uniform(-1, 1, (n, a)).astype(np.float32),
+                "rewards": normal(n), "next_obs": normal(n, obs_dim),
+                "dones": (r.random(n) < 0.1).astype(np.float32)}
+    actions = r.integers(0, a, n).astype(np.int32)
+    if name == "ppo":
+        return {"obs": obs, "actions": actions,
+                "logprobs": np.log(r.uniform(0.2, 0.8, n)).astype(np.float32),
+                "advantages": normal(n), "returns": normal(n)}
+    if name in ("impala", "appo"):
+        out = {"obs": obs, "actions": actions, "vs_targets": normal(n), "advantages": normal(n)}
+        if name == "appo":
+            out["behavior_logp"] = np.log(r.uniform(0.2, 0.8, n)).astype(np.float32)
+        return out
+    return {"obs": obs, "actions": actions, "rewards": normal(n), "next_obs": normal(n, obs_dim),
+            "dones": (r.random(n) < 0.1).astype(np.float32)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["ppo", "impala", "appo", "dqn", "sac", "sac_continuous",
+                                  "tqc"])
+def test_rllib_learner_on_card_matches_cpu(cuda, name):
+    """Three updates of a learner made without a device (cuda:0) against
+    one on the CPU from the same seed, on three batches: every update's
+    loss and metrics within rtol 1e-5 / atol 1e-6, the parameters and
+    targets within 5e-6 after them (both float32, matmuls without TF32; the
+    limits tests/test_torch_rllib.py holds the port to against JAX)."""
+    from ray_tpu_torch.rllib import optim
+    from ray_tpu_torch.rllib.np_policy import to_numpy_params
+
+    cls, cfg_cls, n, dims = _rl_cases()[name]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        on_card, on_cpu = cls(cfg_cls(), *dims), cls(cfg_cls(), *dims, device="cpu")
+        assert on_card.device == cuda
+        for step in range(3):
+            batch = _rl_batch(name, n, dims, step)
+            got, want = on_card.update(batch), on_cpu.update(batch)
+            assert set(got) == set(want)
+            for k in want:
+                np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-6,
+                                           err_msg=f"update {step} {k}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for attr in ("params", "target_params", "target"):
+        if hasattr(on_cpu, attr):
+            for a, b in zip(*(optim.tree_leaves(to_numpy_params(getattr(x, attr)))
+                              for x in (on_card, on_cpu))):
+                np.testing.assert_allclose(a, b, rtol=0, atol=5e-6, err_msg=attr)

@@ -30,7 +30,11 @@ def test_no_module_imports_jax_or_ray_tpu():
                  "serve.anatomy", "serve.admission", "serve.autoscale", "serve.kv_router",
                  "serve.batching", "serve.multiplex", "util.metrics", "util.flight_recorder",
                  "util.timeline", "core.pubsub", "experimental.pubsub", "serve.front_door",
-                 "serve.grpc_ingress"):
+                 "serve.grpc_ingress", "rllib", "rllib.np_policy", "rllib.connectors",
+                 "rllib.replay_buffer", "rllib.env_runner", "rllib.optim", "rllib.learner",
+                 "rllib.ppo", "rllib.learner_group", "rllib.impala", "rllib.appo",
+                 "rllib.off_policy", "rllib.dqn", "rllib.sac", "rllib.sac_continuous",
+                 "rllib.tqc"):
         assert f"ray_tpu_torch.{name}" in modules
     script = textwrap.dedent(f"""
         import importlib, sys, threading
@@ -40,8 +44,8 @@ def test_no_module_imports_jax_or_ray_tpu():
         for name in {modules!r}:
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules
-                     if m == "jax" or m.startswith("jax.")
-                     or m == "ray_tpu" or m.startswith("ray_tpu."))
+                     if m.split(".")[0] in ("jax", "ray_tpu", "optax", "gymnasium")
+                     or m == "cloudpickle")
         print(bad, "threads started by the import:", started)
         sys.exit(1 if bad or started else 0)
     """)
@@ -58,6 +62,8 @@ IN_PROCESS_ONLY = ("multiprocessing", "subprocess", "mmap", "ctypes")
     ("serve", IN_PROCESS_ONLY),
     ("util", IN_PROCESS_ONLY + ("socket",)),  # metrics and rings of this process only
     ("experimental", IN_PROCESS_ONLY + ("socket",)),  # pub/sub of this process
+    # learners, runners and the replay buffer are thread actors of the runtime
+    ("rllib", IN_PROCESS_ONLY + ("jax", "optax", "ray_tpu", "cloudpickle")),
 ])
 def test_runtime_and_serve_stay_in_one_process(package, banned):
     """No worker process, shared memory or native library: the runtime, the
@@ -102,6 +108,21 @@ def test_only_the_grpc_ingress_names_grpc_and_only_when_used():
                      if not isinstance(stmt, (ast.FunctionDef, ast.ClassDef))]
         assert "grpc" not in [n.split(".")[0] for n in top_level], path
     assert namers == ["ray_tpu_torch/serve/grpc_ingress.py"]
+
+
+def test_rllib_names_gymnasium_only_inside_a_function():
+    """``gymnasium`` is imported only where a named env is made
+    (``rllib/ppo.py make_env_creator``), never at a module's top level: the
+    card machine has no gymnasium, and a callable env needs none."""
+    namers = []
+    for path in sorted((REPO / "ray_tpu_torch").rglob("*.py")):
+        tree = ast.parse(path.read_text())
+        if any(name.split(".")[0] == "gymnasium" for name, _ in _imports(tree)):
+            namers.append(path.relative_to(REPO).as_posix())
+        top_level = [name for stmt in tree.body for name, _ in _imports(ast.Module([stmt], []))
+                     if not isinstance(stmt, (ast.FunctionDef, ast.ClassDef))]
+        assert "gymnasium" not in [n.split(".")[0] for n in top_level], path
+    assert namers == ["ray_tpu_torch/rllib/ppo.py"]
 
 
 def test_serve_imports_without_grpc():
