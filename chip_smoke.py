@@ -134,6 +134,19 @@
    full batch. PPO.train() and DQN.train(), 2 iterations each, with 2 env
    runners over NumpyCartPole (defined here: the card machine has no
    gymnasium), sample and learn seconds apart.
+9. Parallel layer (ray_tpu_torch.parallel), after the training path, whose
+   state it frees first: a world of one rank over NCCL (FileStore
+   rendezvous in a temporary directory) and a mesh of that rank with every
+   dim 1; the mesh step (make_train_step(cfg, mesh)) from the training
+   path's seed and batch (Llama-3.2-1B, bf16, remat "full", 5 steps on
+   [4, 2048]); its losses and grad norms held to the one-device step's
+   within PARALLEL_LOSS_RTOL and PARALLEL_NORM_RTOL; the flash counters,
+   zeroed just before, 2 L / L / L a step; its step median, tokens/s and
+   peak memory logged beside the one-device step's. Then the ring tile
+   math at a seq group of 1 against the flash forward at the 1B's attention
+   shapes (bf16, [4, 2048, 32/8, 64]), within TOL[bf16]. The process group
+   is destroyed; then dryrun_multichip(8) on 8 CPU ranks over gloo, through
+   the rank launcher under a 120 s deadline, prints its lines.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {...}}. Exits non-zero, before any result, without a
@@ -147,10 +160,13 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import types
@@ -169,6 +185,9 @@ from ray_tpu_torch.models import llama, moe, vit
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
+from ray_tpu_torch.parallel import mesh as pmesh
+from ray_tpu_torch.parallel.dryrun import dryrun_multichip
+from ray_tpu_torch.parallel.ring_attention import ring_attention
 from ray_tpu_torch.serve import admission, anatomy
 from ray_tpu_torch.serve.controller import Router
 from ray_tpu_torch.serve.llm_paged import PagedLLMConfig, PagedLLMEngine
@@ -342,6 +361,13 @@ RL_METRIC_TOL, RL_PARAM_ATOL = dict(rtol=1e-5, atol=1e-6), 5e-6
 # the reference's rtol 2e-4 / atol 2e-5 (shard gradients sum in another order)
 RL_GROUP_TOL = dict(rtol=2e-4, atol=2e-5)
 RL_TRAIN_ITERS = 2
+# the world-1 mesh step against the one-device step, set before the first
+# card run: both run the same ops but for the vocab-parallel loss's sum and
+# the norm's reduction order, so they may part by bf16 rounding of a few
+# parameters a step (bf16's ulp is 7.8e-3 relative)
+PARALLEL_LOSS_RTOL = 1e-3
+PARALLEL_NORM_RTOL = 1e-2
+DRYRUN_RANKS, DRYRUN_DEADLINE_S = 8, 120
 FLASH_OUTPUTS = {"flash_fwd": ("o",), "flash_bwd_dq": ("dq",), "flash_bwd_dkv": ("dk", "dv")}
 FLASH_KERNELS = {  # name: (TPU kernel it replaces, tensor-core products per (q, k) pair,
     #                    the CUDA kernel that runs at the trainer's shapes)
@@ -1763,7 +1789,10 @@ def trainer_phase(card: str, cfg: llama.LlamaConfig):
         train_mfu=flops / step_s / PEAK_FLOPS[torch.bfloat16],
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, flash_launches=launches,
         launches_per_step={n: c / TRAIN_STEPS for n, c in launches.items()})
-    return launches, state, step, (tokens, targets), initial
+    readings = {"losses": losses, "grad_norms": norms, "step_ms_median": 1e3 * step_s,
+                "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return launches, state, step, (tokens, targets), initial, readings
 
 
 def training_agreement_phase(card: str, cfg: llama.LlamaConfig, params, batch,
@@ -1879,6 +1908,84 @@ def profile_train_step(card: str, step, state, batch) -> None:
         device_launches=sum(e.count for e in dev),
         top=[{"name": e.key[:70], "ms": e.self_device_time_total / 1e3, "calls": e.count}
              for e in top])
+
+
+# ---------------------------------------------------------------- parallel layer
+def parallel_phase(card: str, cfg: llama.LlamaConfig, one_device: dict) -> None:
+    """The mesh step over a world of one NCCL rank (every mesh dim 1) from
+    the training path's seed and batch, held to the one-device step's
+    readings; the ring tile at a seq group of 1 against the flash forward;
+    then dryrun_multichip on CPU ranks through the launcher."""
+    import torch.distributed as dist
+
+    run_dir = tempfile.mkdtemp(prefix="parallel_phase_")
+    pmesh.initialize_distributed(store_path=os.path.join(run_dir, "store"), rank=0,
+                                 world_size=1)
+    try:
+        mesh = pmesh.make_mesh(1, data=1)
+        assert dist.get_backend() == "nccl" and set(pmesh.mesh_shape(mesh).values()) == {1}
+        opt = spmd.make_optimizer(warmup=1)
+        state = spmd.init_state(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), opt,
+                                device=DEVICE)
+        step = spmd.make_train_step(cfg, mesh, opt)(state)
+        tokens, targets = train_batch(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, norms, times = [], [], []
+        fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+        for _ in range(TRAIN_STEPS):
+            t1 = time.monotonic()
+            state, m = step(state, tokens, targets)
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t1)
+        launches = flash_launches()
+        L = cfg.num_layers
+        want = {"flash_fwd": 2 * L * TRAIN_STEPS, "flash_bwd_dq": L * TRAIN_STEPS,
+                "flash_bwd_dkv": L * TRAIN_STEPS}
+        assert launches == want, (launches, want)
+        loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, one_device["losses"]))
+        norm_gap = max(abs(a - b) / abs(b) for a, b in zip(norms, one_device["grad_norms"]))
+        step_s = statistics.median(times[1:])
+        log(card, "parallel: world-1 NCCL mesh step, Llama-3.2-1B (every mesh dim 1)",
+            losses=losses, grad_norms=norms, one_device_losses=one_device["losses"],
+            one_device_grad_norms=one_device["grad_norms"], loss_max_rel_gap=loss_gap,
+            grad_norm_max_rel_gap=norm_gap, loss_limit=PARALLEL_LOSS_RTOL,
+            grad_norm_limit=PARALLEL_NORM_RTOL, step_s=times,
+            step_ms_median_2_to_5=1e3 * step_s,
+            one_device_step_ms_median=one_device["step_ms_median"],
+            tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
+            one_device_tokens_per_s=one_device["tokens_per_s"],
+            train_mfu=model_flops_per_step(cfg) / step_s / PEAK_FLOPS[torch.bfloat16],
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            one_device_peak_mem_gb=one_device["peak_mem_gb"], flash_launches=launches,
+            params_are_dtensors=all(hasattr(p, "placements") for p in spmd.leaves(state.params)))
+        assert loss_gap <= PARALLEL_LOSS_RTOL and norm_gap <= PARALLEL_NORM_RTOL, (loss_gap,
+                                                                                   norm_gap)
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the ring's tile math (one float32 tile, no hop) against the flash forward
+        q, k, v = (t.requires_grad_(False) for t in flash_inputs(
+            torch.bfloat16, TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads, cfg.hd,
+            SEED)[:3])
+        got = ring_attention(q, k, v, mesh, seq_axis="seq")
+        ref = fa.flash_attention(q, k, v, causal=True)
+        err = (got.float() - ref.float()).abs()
+        bound = TOL[torch.bfloat16]["atol"] + TOL[torch.bfloat16]["rtol"] * ref.float().abs()
+        log(card, "parallel: ring tile at seq group 1 vs the flash forward",
+            shape=[TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads, cfg.hd],
+            max_abs_err=err.max().item(), worst_over_limit=(err / bound).max().item())
+        assert bool((err <= bound).all()), err.max().item()
+        del q, k, v, got, ref, err, bound
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(run_dir, ignore_errors=True)
+    t0 = time.monotonic()
+    lines = dryrun_multichip(DRYRUN_RANKS, device_type="cpu", deadline_s=DRYRUN_DEADLINE_S)
+    log(card, f"parallel: dryrun_multichip({DRYRUN_RANKS}) on {DRYRUN_RANKS} CPU ranks (gloo, "
+        "not the card)", lines=lines, seconds=time.monotonic() - t0)
 
 
 # ---------------------------------------------------------------- PD, speculative decoding
@@ -2831,7 +2938,7 @@ def main() -> int:
     flash = flash_kernel_phase(card)
     torch.cuda.empty_cache()
     cfg_train = llama.LlamaConfig.llama_1b()
-    launches, state, step, batch, initial = trainer_phase(card, cfg_train)
+    launches, state, step, batch, initial, one_device = trainer_phase(card, cfg_train)
     training_agreement_phase(card, cfg_train, state.params, batch)
     initial = tree_map(lambda t: t.to(DEVICE), initial)
     f32_reference_phase(card, cfg_train, {"initial": initial, "after 5 steps": state.params},
@@ -2839,6 +2946,11 @@ def main() -> int:
     del initial
     profile_train_step(card, step, state, batch)
     del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_parallel = time.monotonic()
+    parallel_phase(card, cfg_train, one_device)
+    t_parallel = time.monotonic() - t_parallel
     gc.collect()
     torch.cuda.empty_cache()
     t_d256 = time.monotonic()
@@ -2864,7 +2976,7 @@ def main() -> int:
     rllib_phase(card)
     log(card, "smoke wall", seconds=time.monotonic() - t_start, serving_seconds=t_serve,
         pd_dp_any_dim_d256_seconds=t_new,
-        moe_vit_tiny_seconds=time.monotonic() - t_models,
+        moe_vit_tiny_seconds=time.monotonic() - t_models, parallel_seconds=t_parallel,
         param_count_serving=llama.param_count_analytic(cfg),
         param_count_training=llama.param_count_analytic(cfg_train))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -108,6 +108,31 @@ class LlamaConfig:
 
 
 # ---------------------------------------------------------------- params
+def logical_axes(cfg: LlamaConfig) -> dict:
+    """Logical-axis tree matching ``init`` (consumed by ``parallel.sharding``'s
+    rules). Layer params carry a leading None for the stacked ``[L, ...]``
+    dimension, as in the JAX tree."""
+    block = {
+        "attn_norm": (None, None),
+        "wq": (None, "embed_fsdp", "heads"),
+        "wk": (None, "embed_fsdp", "kv_heads"),
+        "wv": (None, "embed_fsdp", "kv_heads"),
+        "wo": (None, "heads", "embed_fsdp"),
+        "mlp_norm": (None, None),
+        "w_gate": (None, "embed_fsdp", "mlp"),
+        "w_up": (None, "embed_fsdp", "mlp"),
+        "w_down": (None, "mlp", "embed_fsdp"),
+    }
+    tree = {
+        "embed": ("vocab", "embed_fsdp"),
+        "layers": block,
+        "final_norm": (None,),
+    }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = ("embed_fsdp", "vocab")
+    return tree
+
+
 def init(cfg: LlamaConfig, generator: torch.Generator, device=None) -> dict:
     """Scaled-normal init in the JAX tree layout, drawn from ``generator``
     (which must live on ``device``). Stacked ``[L, ...]`` weights are drawn

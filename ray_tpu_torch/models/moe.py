@@ -3,9 +3,9 @@
 A Llama backbone (``models.llama`` ops) whose MLP is replaced in every
 block by a capacity-bounded top-k MoE layer. Tokens are routed with dense
 dispatch/combine einsums over an [E, C] capacity buffer, as the reference
-does; the reference shards the experts over a mesh axis, which waits for
-the port's parallel layer (ROADMAP queue 1 item 5), so this runs on one
-device.
+does. ``forward`` runs on one device; ``logical_axes`` shards the experts
+over the ``expert`` mesh dim, and ``parallel.model_parallel.moe_forward``
+runs the same forward on a mesh, each rank computing its own experts.
 
 Numerics follow the reference: the router's logits and softmax are
 float32; the top-k order is descending with ties to the lower expert index
@@ -52,6 +52,22 @@ class MoEConfig:
             ),
             num_experts=8, top_k=2,
         )
+
+
+def logical_axes(cfg: MoEConfig) -> dict:
+    """Param sharding tree: experts lead with the ``expert`` axis."""
+    ax = llama.logical_axes(cfg.base)
+    ax["layers"] = dict(ax["layers"])
+    ax["layers"].update({
+        "router": (None, None, None),
+        "e_gate": (None, "expert", "embed_fsdp", "mlp"),
+        "e_up": (None, "expert", "embed_fsdp", "mlp"),
+        "e_down": (None, "expert", "mlp", "embed_fsdp"),
+    })
+    # every block is MoE: the dense MLP weights are replaced by experts
+    for dense_key in ("w_gate", "w_up", "w_down"):
+        ax["layers"].pop(dense_key, None)
+    return ax
 
 
 def init(cfg: MoEConfig, generator: torch.Generator, device=None) -> dict:

@@ -793,3 +793,74 @@ def test_rllib_learner_on_card_matches_cpu(cuda, name):
             for a, b in zip(*(optim.tree_leaves(to_numpy_params(getattr(x, attr)))
                               for x in (on_card, on_cpu))):
                 np.testing.assert_allclose(a, b, rtol=0, atol=5e-6, err_msg=attr)
+
+
+@pytest.fixture
+def world_one_nccl(cuda, tmp_path):
+    """A world of one rank over NCCL (FileStore rendezvous), destroyed after."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import mesh as pmesh
+
+    pmesh.initialize_distributed(store_path=str(tmp_path / "store"), rank=0, world_size=1)
+    try:
+        yield pmesh.make_mesh(1, data=1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("attn", ["dense", "flash"])
+def test_world_one_mesh_step_matches_the_one_device_step(world_one_nccl, cuda, attn):
+    """The mesh step on a one-rank NCCL mesh (every dim 1) against the
+    one-device step from the same weights and batch, tiny config in
+    float32: the same arithmetic (collectives on a dim of 1 are skipped),
+    so loss and grad norm within rtol 1e-5 and parameters atol 1e-5 after
+    three steps; with attn_fn = flash each of the three kernels runs L
+    times a step (no remat in the tiny config), in both steps."""
+    from ray_tpu_torch.parallel.mesh import mesh_shape
+
+    cfg = llama.LlamaConfig.tiny()
+    attn_fn = fa.flash_attention if attn == "flash" else None
+    opt = spmd.make_optimizer(1e-3, warmup=1)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 64))
+    targets = np.concatenate([tokens[:, 1:], np.full((2, 1), -100)], axis=1)
+    runs = {}
+    for label in ("device", "mesh"):
+        state = spmd.init_state(cfg, torch.Generator(cuda).manual_seed(0), opt, device=cuda)
+        if label == "mesh":
+            step = spmd.make_train_step(cfg, world_one_nccl, opt, attn_fn)(state)
+        else:
+            step = spmd.make_train_step(cfg, opt, attn_fn, device=cuda)
+        before = (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+        seen = []
+        for _ in range(3):
+            state, m = step(state, tokens, targets)
+            seen.append((m["loss"].item(), m["grad_norm"].item()))
+        launches = tuple(a - b for a, b in zip(
+            (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches), before))
+        params = spmd.leaves(state.params)
+        runs[label] = (seen, [p.to_local() if hasattr(p, "to_local") else p for p in params],
+                       launches)
+    assert set(mesh_shape(world_one_nccl).values()) == {1}
+    np.testing.assert_allclose(runs["mesh"][0], runs["device"][0], rtol=1e-5)
+    for got, want in zip(runs["mesh"][1], runs["device"][1]):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    L = cfg.num_layers
+    assert not cfg.remat
+    want = (3 * L, 3 * L, 3 * L) if attn == "flash" else (0, 0, 0)
+    assert runs["mesh"][2] == runs["device"][2] == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_tile_math_matches_the_flash_forward(world_one_nccl, cuda, dtype):
+    """Ring attention at a seq group of 1 (one float32 tile, no hop) against
+    the flash forward on the same causal inputs, within the flash kernels'
+    tolerance of their plain version (module doc)."""
+    from ray_tpu_torch.parallel.ring_attention import ring_attention
+
+    q, k, v, _ = _flash_inputs(cuda, dtype, 2, 300, 8, 2, 64)
+    got = ring_attention(q, k, v, world_one_nccl, seq_axis="seq")
+    want = fa.flash_attention(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])

@@ -34,7 +34,9 @@ def test_no_module_imports_jax_or_ray_tpu():
                  "rllib.replay_buffer", "rllib.env_runner", "rllib.optim", "rllib.learner",
                  "rllib.ppo", "rllib.learner_group", "rllib.impala", "rllib.appo",
                  "rllib.off_policy", "rllib.dqn", "rllib.sac", "rllib.sac_continuous",
-                 "rllib.tqc"):
+                 "rllib.tqc", "parallel", "parallel.mesh", "parallel.sharding",
+                 "parallel.collectives", "parallel.ring_attention", "parallel.launch",
+                 "parallel.model_parallel", "parallel.dryrun"):
         assert f"ray_tpu_torch.{name}" in modules
     script = textwrap.dedent(f"""
         import importlib, sys, threading
@@ -83,6 +85,30 @@ def test_runtime_and_serve_stay_in_one_process(package, banned):
                 continue
             for name in names:
                 assert name.split(".")[0] not in banned, (path.name, name)
+
+
+PARALLEL_BANNED = ("jax", "ray_tpu", "optax", "cloudpickle", "multiprocessing", "mmap",
+                   "ctypes")
+
+
+def test_parallel_package_spawns_only_through_its_launcher():
+    """The parallel layer starts processes only in ``parallel/launch.py``
+    (one subprocess per rank, results through files), imports nothing of
+    the JAX side, no shared-memory or native-library module, and never
+    names /dev/shm."""
+    files = sorted((REPO / "ray_tpu_torch" / "parallel").glob("*.py"))
+    assert {p.name for p in files} >= {"mesh.py", "sharding.py", "collectives.py",
+                                       "ring_attention.py", "launch.py", "model_parallel.py",
+                                       "dryrun.py"}
+    spawners = []
+    for path in files:
+        source = path.read_text()
+        assert "/dev/shm" not in source, path
+        for name, _ in _imports(ast.parse(source)):
+            assert name.split(".")[0] not in PARALLEL_BANNED, (path.name, name)
+            if name.split(".")[0] == "subprocess":
+                spawners.append(path.name)
+    assert spawners == ["launch.py"]
 
 
 def _imports(tree) -> list:
