@@ -129,7 +129,12 @@
    from the same seed, 5 updates on the same fixed batch: every update's
    loss and metrics and the final parameters must agree (float32, no
    TF32); then each learner's median update on the card and the CPU, and
-   torch.profiler's kernel launches and device-idle share an update. A
+   torch.profiler's kernel launches and device-idle share an update. The
+   offline algorithms (BC, MARWIL, CQL, IQL) at the reference's defaults
+   on seeded datasets of 1000 transitions (CartPole's and Pendulum's
+   shapes): made without a device and on the CPU, the card's given the
+   CPU's weights (from_jax), one update on the same fixed batch must agree
+   in metrics, parameters and targets, then timed as above. A
    LearnerGroup of 2 PPO learners on the card against one learner on the
    full batch. PPO.train() and DQN.train(), 2 iterations each, with 2 env
    runners over NumpyCartPole (defined here: the card machine has no
@@ -144,9 +149,18 @@
    zeroed just before, 2 L / L / L a step; its step median, tokens/s and
    peak memory logged beside the one-device step's. Then the ring tile
    math at a seq group of 1 against the flash forward at the 1B's attention
-   shapes (bf16, [4, 2048, 32/8, 64]), within TOL[bf16]. The process group
-   is destroyed; then dryrun_multichip(8) on 8 CPU ranks over gloo, through
-   the rank launcher under a 120 s deadline, prints its lines.
+   shapes (bf16, [4, 2048, 32/8, 64]), within TOL[bf16]. Then the GPipe
+   step (parallel.pipeline.make_pp_train_step) on the same mesh (pipe 1):
+   the 1B's seed and batch in 4 microbatches of one row, 5 steps, its
+   losses and grad norms held to the one-device step's within PP_LOSS_RTOL
+   and PP_NORM_RTOL, the flash counters, zeroed just before, 2 L M / L M /
+   L M a step (every microbatch through every layer, the forward again
+   under remat), step median, tokens/s, train_mfu and peak memory logged
+   beside the one-device step's; and LlamaConfig.tiny() in float32, its
+   GPipe step in 2 microbatches against the one-device step at rtol 1e-5
+   over 3 steps. The process group is destroyed; then dryrun_multichip(8)
+   on 8 CPU ranks over gloo, through the rank launcher under a 120 s
+   deadline, prints its lines, the pipeline's (pipe 2) among them.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {...}}. Exits non-zero, before any result, without a
@@ -186,6 +200,7 @@ from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.parallel import mesh as pmesh
+from ray_tpu_torch.parallel import pipeline
 from ray_tpu_torch.parallel.dryrun import dryrun_multichip
 from ray_tpu_torch.parallel.ring_attention import ring_attention
 from ray_tpu_torch.serve import admission, anatomy
@@ -360,6 +375,11 @@ RL_METRIC_TOL, RL_PARAM_ATOL = dict(rtol=1e-5, atol=1e-6), 5e-6
 # a LearnerGroup of 2 PPO learners against one learner on the full batch,
 # the reference's rtol 2e-4 / atol 2e-5 (shard gradients sum in another order)
 RL_GROUP_TOL = dict(rtol=2e-4, atol=2e-5)
+# the offline algorithms (rl_offline_phase) at the reference's default
+# widths and batch size (256), on datasets of RL_OFFLINE_ROWS transitions
+RL_OFFLINE = {"bc": rllib.BCConfig, "marwil": rllib.MARWILConfig, "cql": rllib.CQLConfig,
+              "iql": rllib.IQLConfig}
+RL_OFFLINE_ROWS = 1000
 RL_TRAIN_ITERS = 2
 # the world-1 mesh step against the one-device step, set before the first
 # card run: both run the same ops but for the vocab-parallel loss's sum and
@@ -367,6 +387,16 @@ RL_TRAIN_ITERS = 2
 # parameters a step (bf16's ulp is 7.8e-3 relative)
 PARALLEL_LOSS_RTOL = 1e-3
 PARALLEL_NORM_RTOL = 1e-2
+# the GPipe step (parallel.pipeline) on the same world-1 mesh (pipe 1), the
+# 1B's batch in PP_MICROBATCHES microbatches of one row, against the
+# one-device step, limits set before the first card run and no looser than
+# the mesh step's: microbatches of 1 row may round bf16 apart from a batch
+# of 4 where cuBLAS picks other GEMM kernels for 2048 rows than for 8192
+PP_MICROBATCHES = 4
+PP_LOSS_RTOL, PP_NORM_RTOL = PARALLEL_LOSS_RTOL, PARALLEL_NORM_RTOL
+# the exact check: LlamaConfig.tiny() in float32 (dense attention), its PP
+# step at pipe 1 in 2 microbatches against the one-device step, 3 steps
+PP_TINY_MICROBATCHES, PP_TINY_STEPS, PP_TINY_RTOL = 2, 3, 1e-5
 DRYRUN_RANKS, DRYRUN_DEADLINE_S = 8, 120
 FLASH_OUTPUTS = {"flash_fwd": ("o",), "flash_bwd_dq": ("dq",), "flash_bwd_dkv": ("dk", "dv")}
 FLASH_KERNELS = {  # name: (TPU kernel it replaces, tensor-core products per (q, k) pair,
@@ -1882,7 +1912,9 @@ def f32_reference_phase(card: str, cfg: llama.LlamaConfig, points: dict, batch,
     assert not over, (over, readings)
 
 
-def profile_train_step(card: str, step, state, batch) -> None:
+def profile_train_step(card: str, step, state, batch,
+                       label: str = "train step breakdown (Llama-3.2-1B, B 4 x S 2048, under "
+                                    "the profiler)") -> None:
     """Where one train step's time goes: host wall, device busy time from
     torch.profiler, the top kernels and the flash kernels' share."""
     from torch.profiler import ProfilerActivity, profile
@@ -1899,8 +1931,7 @@ def profile_train_step(card: str, step, state, batch) -> None:
     gemm_ms = sum(e.self_device_time_total for e in dev
                   if e.key.startswith("nvjet") or "gemm" in e.key) / 1e3
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:12]
-    log(card, "train step breakdown (Llama-3.2-1B, B 4 x S 2048, under the profiler)",
-        wall_ms=wall_ms, device_busy_ms=busy_ms if dev else "not measured",
+    log(card, label, wall_ms=wall_ms, device_busy_ms=busy_ms if dev else "not measured",
         device_idle_share=1 - busy_ms / wall_ms if dev else "not measured",
         flash_ms=flash_ms if dev else "not measured",
         flash_share_of_busy=flash_ms / busy_ms if dev else "not measured",
@@ -1911,11 +1942,96 @@ def profile_train_step(card: str, step, state, batch) -> None:
 
 
 # ---------------------------------------------------------------- parallel layer
-def parallel_phase(card: str, cfg: llama.LlamaConfig, one_device: dict) -> None:
+def train_steps(step, state, tokens, targets, steps: int = TRAIN_STEPS):
+    """Run ``steps`` steps with the flash counters zeroed just before:
+    (state, losses, grad norms, step seconds, flash launches)."""
+    losses, norms, times = [], [], []
+    fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+    for _ in range(steps):
+        t1 = time.monotonic()
+        state, m = step(state, tokens, targets)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t1)
+    return state, losses, norms, times, flash_launches()
+
+
+def step_gaps(losses, norms, one_device: dict) -> tuple[float, float]:
+    """Largest relative gaps of losses and grad norms to the one-device step's."""
+    return (max(abs(a - b) / abs(b) for a, b in zip(losses, one_device["losses"])),
+            max(abs(a - b) / abs(b) for a, b in zip(norms, one_device["grad_norms"])))
+
+
+def pp_phase(card: str, cfg: llama.LlamaConfig, mesh, one_device: dict) -> dict:
+    """The GPipe step (pipeline.make_pp_train_step) at pipe 1 on the world-1
+    mesh, from the training path's seed and batch in PP_MICROBATCHES
+    microbatches, held to the one-device step; then LlamaConfig.tiny() in
+    float32, its PP step against the one-device step at PP_TINY_RTOL.
+    Returns the 1B run's flash launches."""
+    M, L = PP_MICROBATCHES, cfg.num_layers
+    opt = spmd.make_optimizer(warmup=1)
+    state = spmd.init_state(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), opt,
+                            device=DEVICE)
+    step = pipeline.make_pp_train_step(cfg, mesh, num_microbatches=M, optimizer=opt)(state)
+    tokens, targets = train_batch(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, norms, times, launches = train_steps(step, state, tokens, targets)
+    want = {"flash_fwd": 2 * L * M * TRAIN_STEPS, "flash_bwd_dq": L * M * TRAIN_STEPS,
+            "flash_bwd_dkv": L * M * TRAIN_STEPS}
+    assert launches == want, (launches, want)
+    loss_gap, norm_gap = step_gaps(losses, norms, one_device)
+    step_s = statistics.median(times[1:])
+    log(card, f"parallel: GPipe step, world 1 (pipe 1), {M} microbatches of "
+        f"{TRAIN_BATCH // M} row, Llama-3.2-1B", losses=losses, grad_norms=norms,
+        one_device_losses=one_device["losses"], one_device_grad_norms=one_device["grad_norms"],
+        loss_max_rel_gap=loss_gap, grad_norm_max_rel_gap=norm_gap, loss_limit=PP_LOSS_RTOL,
+        grad_norm_limit=PP_NORM_RTOL, step_s=times, step_ms_median_2_to_5=1e3 * step_s,
+        one_device_step_ms_median=one_device["step_ms_median"],
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
+        one_device_tokens_per_s=one_device["tokens_per_s"],
+        train_mfu=model_flops_per_step(cfg) / step_s / PEAK_FLOPS[torch.bfloat16],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        one_device_peak_mem_gb=one_device["peak_mem_gb"], flash_launches=launches,
+        launches_per_step={n: c / TRAIN_STEPS for n, c in launches.items()})
+    assert np.isfinite(losses).all() and np.isfinite(norms).all(), (losses, norms)
+    assert loss_gap <= PP_LOSS_RTOL and norm_gap <= PP_NORM_RTOL, (loss_gap, norm_gap)
+    profile_train_step(card, step, state, (tokens, targets),
+                       f"GPipe step breakdown (Llama-3.2-1B, pipe 1, {M} microbatches, under "
+                       "the profiler)")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the exact check: float32, the same ops but for the microbatch split
+    tiny = llama.LlamaConfig.tiny()
+    rng = np.random.default_rng(SEED + 5)
+    batch = [torch.from_numpy(rng.integers(0, tiny.vocab_size, (4, 32))).to(DEVICE)
+             for _ in range(2)]
+    readings = {}
+    for label in ("one device", "GPipe"):
+        opt = spmd.make_optimizer(1e-2, warmup=1)
+        state = spmd.init_state(tiny, torch.Generator(device=DEVICE).manual_seed(SEED), opt,
+                                device=DEVICE)
+        step = (spmd.make_train_step(tiny, opt, device=DEVICE) if label == "one device" else
+                pipeline.make_pp_train_step(tiny, mesh, PP_TINY_MICROBATCHES, opt)(state))
+        readings[label] = train_steps(step, state, *batch, steps=PP_TINY_STEPS)[1:3]
+    one, pp = readings["one device"], readings["GPipe"]
+    log(card, f"parallel: GPipe step vs one-device step, LlamaConfig.tiny() float32, "
+        f"{PP_TINY_MICROBATCHES} microbatches", losses=pp[0], one_device_losses=one[0],
+        grad_norms=pp[1], one_device_grad_norms=one[1], rtol=PP_TINY_RTOL)
+    np.testing.assert_allclose(pp[0], one[0], rtol=PP_TINY_RTOL)
+    np.testing.assert_allclose(pp[1], one[1], rtol=PP_TINY_RTOL)
+    return launches
+
+
+def parallel_phase(card: str, cfg: llama.LlamaConfig, one_device: dict) -> dict:
     """The mesh step over a world of one NCCL rank (every mesh dim 1) from
     the training path's seed and batch, held to the one-device step's
     readings; the ring tile at a seq group of 1 against the flash forward;
-    then dryrun_multichip on CPU ranks through the launcher."""
+    the GPipe step on the same mesh (pp_phase); then dryrun_multichip on
+    CPU ranks through the launcher. Returns the GPipe step's flash
+    launches."""
     import torch.distributed as dist
 
     run_dir = tempfile.mkdtemp(prefix="parallel_phase_")
@@ -1931,22 +2047,12 @@ def parallel_phase(card: str, cfg: llama.LlamaConfig, one_device: dict) -> None:
         tokens, targets = train_batch(cfg)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        losses, norms, times = [], [], []
-        fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
-        for _ in range(TRAIN_STEPS):
-            t1 = time.monotonic()
-            state, m = step(state, tokens, targets)
-            losses.append(m["loss"].item())
-            norms.append(m["grad_norm"].item())
-            torch.cuda.synchronize()
-            times.append(time.monotonic() - t1)
-        launches = flash_launches()
+        state, losses, norms, times, launches = train_steps(step, state, tokens, targets)
         L = cfg.num_layers
         want = {"flash_fwd": 2 * L * TRAIN_STEPS, "flash_bwd_dq": L * TRAIN_STEPS,
                 "flash_bwd_dkv": L * TRAIN_STEPS}
         assert launches == want, (launches, want)
-        loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, one_device["losses"]))
-        norm_gap = max(abs(a - b) / abs(b) for a, b in zip(norms, one_device["grad_norms"]))
+        loss_gap, norm_gap = step_gaps(losses, norms, one_device)
         step_s = statistics.median(times[1:])
         log(card, "parallel: world-1 NCCL mesh step, Llama-3.2-1B (every mesh dim 1)",
             losses=losses, grad_norms=norms, one_device_losses=one_device["losses"],
@@ -1979,13 +2085,20 @@ def parallel_phase(card: str, cfg: llama.LlamaConfig, one_device: dict) -> None:
             max_abs_err=err.max().item(), worst_over_limit=(err / bound).max().item())
         assert bool((err <= bound).all()), err.max().item()
         del q, k, v, got, ref, err, bound
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        pp_launches = pp_phase(card, cfg, mesh, one_device)
+        log(card, "parallel: GPipe phase wall", seconds=time.monotonic() - t0)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(run_dir, ignore_errors=True)
     t0 = time.monotonic()
     lines = dryrun_multichip(DRYRUN_RANKS, device_type="cpu", deadline_s=DRYRUN_DEADLINE_S)
+    assert any("pipeline mesh=" in line and line.endswith("OK") for line in lines), lines
     log(card, f"parallel: dryrun_multichip({DRYRUN_RANKS}) on {DRYRUN_RANKS} CPU ranks (gloo, "
         "not the card)", lines=lines, seconds=time.monotonic() - t0)
+    return pp_launches
 
 
 # ---------------------------------------------------------------- PD, speculative decoding
@@ -2760,8 +2873,6 @@ def rl_learners_phase(card: str) -> dict:
     """Each learner on the card against one on the CPU: RL_UPDATES updates
     on the same batch from the same initial parameters, then the card's
     median update, its kernel launches an update and its idle share."""
-    from torch.profiler import ProfilerActivity, profile
-
     rows = {}
     for name, (cls, cfg_cls, n, dims) in RL_LEARNERS.items():
         on_card = cls(cfg_cls(), *dims)  # no device: cuda:0
@@ -2782,27 +2893,85 @@ def rl_learners_phase(card: str) -> dict:
         end_card, end_cpu = rl_state(on_card), rl_state(on_cpu)
         param_err = max(float(np.abs(end_card[k] - end_cpu[k]).max()) for k in end_cpu)
         assert param_err <= RL_PARAM_ATOL, (name, param_err)
-        rl_update_ms(on_card, batch, 3)  # warm
-        card_ms = statistics.median(rl_update_ms(on_card, batch, RL_TIMED_UPDATES))
-        cpu_ms = statistics.median(rl_update_ms(on_cpu, batch, RL_UPDATES))
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            rl_update_ms(on_card, batch, RL_PROFILED_UPDATES)
-            torch.cuda.synchronize()
-        dev, _ = device_events(prof)
-        busy_ms = sum(e.self_device_time_total for e in dev) / 1e3 / RL_PROFILED_UPDATES
-        launches = sum(e.count for e in dev) / RL_PROFILED_UPDATES
-        top = sorted(dev, key=lambda e: -e.self_device_time_total)[:3]
-        rows[name] = dict(
-            batch=n, update_ms_card=card_ms, update_ms_cpu=cpu_ms,
-            device_busy_ms=busy_ms if dev else "not measured",
-            launches_per_update=launches if dev else "not measured",
-            device_idle_share=1 - busy_ms / card_ms if dev else "not measured",
-            metrics_max_rel_err=worst_metric, params_max_abs_err=param_err,
-            top=[{"name": e.key[:60], "ms_per_update": e.self_device_time_total / 1e3
-                  / RL_PROFILED_UPDATES} for e in top])
+        rows[name] = dict(batch=n, **rl_timings(on_card, on_cpu, batch),
+                          metrics_max_rel_err=worst_metric, params_max_abs_err=param_err)
         log(card, f"rllib learner {name}: card vs CPU over {RL_UPDATES} updates, then timed",
             **rows[name])
+    return rows
+
+
+def rl_timings(on_card, on_cpu, batch: dict) -> dict:
+    """The card's and the CPU's median update ms, then torch.profiler's
+    kernel launches, device busy ms and idle share an update on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rl_update_ms(on_card, batch, 3)  # warm
+    card_ms = statistics.median(rl_update_ms(on_card, batch, RL_TIMED_UPDATES))
+    cpu_ms = statistics.median(rl_update_ms(on_cpu, batch, RL_UPDATES))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rl_update_ms(on_card, batch, RL_PROFILED_UPDATES)
+        torch.cuda.synchronize()
+    dev, _ = device_events(prof)
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3 / RL_PROFILED_UPDATES
+    launches = sum(e.count for e in dev) / RL_PROFILED_UPDATES
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:3]
+    return dict(update_ms_card=card_ms, update_ms_cpu=cpu_ms,
+                device_busy_ms=busy_ms if dev else "not measured",
+                launches_per_update=launches if dev else "not measured",
+                device_idle_share=1 - busy_ms / card_ms if dev else "not measured",
+                top=[{"name": e.key[:60], "ms_per_update": e.self_device_time_total / 1e3
+                      / RL_PROFILED_UPDATES} for e in top])
+
+
+def offline_dataset(name: str, rows: int = RL_OFFLINE_ROWS) -> dict:
+    """A transition dict from a seed: CartPole's shapes (4 observations, 2
+    actions) for the discrete algorithms, Pendulum's (3, 1) for IQL."""
+    r = np.random.default_rng(SEED + 7)
+    obs_dim = 3 if name == "iql" else 4
+    actions = (r.uniform(-1, 1, (rows, 1)).astype(np.float32) if name == "iql"
+               else r.integers(0, 2, rows))
+    return {"obs": r.normal(size=(rows, obs_dim)).astype(np.float32), "actions": actions,
+            "rewards": r.normal(size=rows).astype(np.float32),
+            "next_obs": r.normal(size=(rows, obs_dim)).astype(np.float32),
+            "dones": (r.random(rows) < 0.1).astype(np.float32)}
+
+
+def rl_offline_phase(card: str) -> dict:
+    """BC, MARWIL, CQL and IQL made without a device (cuda:0) and on the
+    CPU, the card's taking the CPU's weights through from_jax: one update on
+    the same fixed batch, the metrics and parameters (and targets) held
+    within RL_METRIC_TOL / RL_PARAM_ATOL; then each one's median update on
+    the card and the CPU, launches and idle share."""
+    rows = {}
+    for name, cfg_cls in RL_OFFLINE.items():
+        data = offline_dataset(name)
+        on_card = cfg_cls().offline_data(data).build()  # no device: cuda:0
+        on_cpu = cfg_cls().offline_data(data).build(device="cpu")
+        weights = rllib.np_policy.to_numpy_params(on_cpu.params)
+        if name in ("cql", "iql"):
+            target = on_cpu.target_params if name == "cql" else on_cpu.target
+            on_card.from_jax(weights, rllib.np_policy.to_numpy_params(target))
+        else:
+            on_card.from_jax(weights)
+        assert on_card.device == DEVICE and all(
+            t.device == DEVICE for t in rllib.optim.tree_leaves(on_card.params)), name
+        idx = np.random.default_rng(SEED + 8).integers(0, RL_OFFLINE_ROWS,
+                                                       on_cpu.cfg.train_batch_size)
+        batch = {k: v[idx] for k, v in data.items()}
+        got, want = on_card.update(batch), on_cpu.update(batch)
+        assert set(got) == set(want), (name, sorted(got), sorted(want))
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], **RL_METRIC_TOL, err_msg=f"{name} {k}")
+        worst_metric = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in want)
+        end_card, end_cpu = rl_state(on_card), rl_state(on_cpu)
+        assert set(end_card) == set(end_cpu) and len(end_cpu) > 0, name
+        param_err = max(float(np.abs(end_card[k] - end_cpu[k]).max()) for k in end_cpu)
+        assert param_err <= RL_PARAM_ATOL, (name, param_err)
+        rows[name] = dict(batch=len(idx), **rl_timings(on_card, on_cpu, batch),
+                          metrics_max_rel_err=worst_metric, params_max_abs_err=param_err)
+        log(card, f"rllib offline {name}: one update card vs CPU from the same weights, "
+            "then timed", **rows[name])
     return rows
 
 
@@ -2877,11 +3046,13 @@ def rl_train_phase(card: str) -> None:
 
 def rllib_phase(card: str) -> None:
     """The RLlib core: the seven learners card vs CPU and timed, the
-    learner group, and PPO and DQN iterations with env runners."""
+    offline algorithms card vs CPU and timed, the learner group, and PPO
+    and DQN iterations with env runners."""
     torch.set_float32_matmul_precision("highest")
     assert not torch.backends.cuda.matmul.allow_tf32
     t0 = time.monotonic()
     rl_learners_phase(card)
+    rl_offline_phase(card)
     ray_tpu_torch.init()
     try:
         rl_group_phase(card)
@@ -2949,7 +3120,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t_parallel = time.monotonic()
-    parallel_phase(card, cfg_train, one_device)
+    pp_launches = parallel_phase(card, cfg_train, one_device)
     t_parallel = time.monotonic() - t_parallel
     gc.collect()
     torch.cuda.empty_cache()
@@ -2960,7 +3131,9 @@ def main() -> int:
         kernel = entry["name"]
         entry["launches"] = launches[kernel]
         entry["launches_by_path"] = {"train (Llama-3.2-1B, head dim 64)": launches[kernel],
-                                     "train (head dim 256, 4 layers)": d256_launches[kernel]}
+                                     "train (head dim 256, 4 layers)": d256_launches[kernel],
+                                     f"GPipe train (Llama-3.2-1B, pipe 1, {PP_MICROBATCHES} "
+                                     "microbatches)": pp_launches[kernel]}
         entry["head_dim_256"] = d256_rows[kernel]
     kernels += flash
     gc.collect()

@@ -6,12 +6,10 @@ dims and run one FULL training step (forward, backward, AdamW; ring
 attention on the seq dim) of ``LlamaConfig.tiny()`` over it, with the
 reference's layouts table; at 8 ranks a second, dense layout (data, fsdp
 and seq all active); at multiples of 4 the MoE forward with its experts
-sharded over ``expert``. ``device_type=None`` puts each rank on its own
-card over NCCL (``n`` cards needed); ``"cpu"`` runs the ranks over gloo.
-
-The reference's pipeline step (multiples of 8 ranks) is not ported: here
-the pipeline mesh is built and ``make_auto_train_step`` refuses it, naming
-ROADMAP queue 1 item 5a-ii, and the run reports that line.
+sharded over ``expert``; at multiples of 8 one GPipe step
+(``parallel.pipeline``) of 2 microbatches on a data x pipe 2 x fsdp 2 x
+tensor 2 mesh. ``device_type=None`` puts each rank on its own card over
+NCCL (``n`` cards needed); ``"cpu"`` runs the ranks over gloo.
 
 Returns rank 0's report lines (each also printed).
 """
@@ -61,6 +59,7 @@ def _train_one_step(n: int, layout: dict, device_type: str, seed: int) -> tuple[
 
 def _rank(rank: int, world: int, args: dict) -> dict:
     from ray_tpu_torch.models import llama, moe
+    from ray_tpu_torch.parallel import pipeline
     from ray_tpu_torch.parallel import sharding as shd
     from ray_tpu_torch.parallel.mesh import make_mesh, mesh_shape
     from ray_tpu_torch.parallel.model_parallel import moe_forward
@@ -75,12 +74,18 @@ def _rank(rank: int, world: int, args: dict) -> dict:
         lines.append(f"dryrun_multichip({n}): dense mesh={shape} loss={losses['dense']:.4f} OK")
     if n >= 8 and n % 8 == 0:
         pp_mesh = make_mesh(n, data=n // 8, pipe=2, fsdp=2, tensor=2, device_type=device_type)
-        try:
-            spmd.make_auto_train_step(llama.LlamaConfig.tiny(), pp_mesh)
-            raise AssertionError("the pipeline mesh was not refused")
-        except NotImplementedError as e:
-            lines.append(f"dryrun_multichip({n}): pipeline mesh={mesh_shape(pp_mesh)} "
-                         f"NOT RUN: {e}")
+        cfg = llama.LlamaConfig.tiny()
+        pp_state = spmd.init_state(cfg, torch.Generator().manual_seed(3), device="cpu")
+        pp_step = pipeline.make_pp_train_step(cfg, pp_mesh, num_microbatches=2)(pp_state)
+        shape = mesh_shape(pp_mesh)
+        tokens = np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (2 * shape["data"] * shape["fsdp"], 16))
+        _, metrics = pp_step(pp_state, tokens, tokens)
+        losses["pipeline"] = float(metrics["loss"])
+        assert losses["pipeline"] == losses["pipeline"] and losses["pipeline"] > 0, (
+            f"bad PP loss {losses['pipeline']}")
+        lines.append(f"dryrun_multichip({n}): pipeline mesh={shape} microbatches=2 "
+                     f"loss={losses['pipeline']:.4f} OK")
     if n >= 4 and n % 4 == 0:
         ep_mesh = make_mesh(n, data=n // 4, expert=4, device_type=device_type)
         mcfg = moe.MoEConfig.tiny()

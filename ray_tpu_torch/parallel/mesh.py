@@ -5,7 +5,7 @@ ranks of the default process group, in the reference's order (leading dims
 get the slower links):
 
   data   - pure data parallel (gradients summed over the dim)
-  pipe   - pipeline parallel (waits for ROADMAP queue 1 item 5a-ii)
+  pipe   - pipeline parallel (the GPipe step, ``parallel.pipeline``)
   fsdp   - data parallel with parameters and optimizer state sharded (ZeRO-3)
   tensor - megatron-style tensor parallel
   seq    - sequence parallel (ring attention over the dim's ranks)

@@ -114,11 +114,16 @@ def tree_shardings(mesh, logical_tree, rules=None):
     return _map(lambda axes: named_sharding(mesh, axes, rules), logical_tree)
 
 
+def place_params(params, placements_tree, mesh):
+    """Every full tensor of ``params`` as a DTensor on ``mesh`` placed as
+    ``placements_tree`` says (host -> device, sharded)."""
+    return _map(lambda p, s: distribute(p, mesh, s), params, placements_tree)
+
+
 def shard_params(params, logical_tree, mesh, rules=None):
     """Every full tensor of ``params`` as a DTensor on ``mesh`` placed by its
     logical axes (host -> device, sharded)."""
-    shardings = tree_shardings(mesh, logical_tree, rules)
-    return _map(lambda p, s: distribute(p, mesh, s), params, shardings)
+    return place_params(params, tree_shardings(mesh, logical_tree, rules), mesh)
 
 
 def replicated(mesh) -> list:

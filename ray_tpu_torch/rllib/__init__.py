@@ -1,19 +1,22 @@
-"""ray_tpu_torch.rllib: the online core of ray_tpu/rllib in PyTorch.
+"""ray_tpu_torch.rllib: ray_tpu/rllib in PyTorch.
 
 Algorithms: PPO, IMPALA and APPO (on-policy / V-trace), DQN, discrete SAC,
-continuous SAC and TQC (off-policy over a replay-buffer actor), and the
+continuous SAC and TQC (off-policy over a replay-buffer actor), the
 LearnerGroup (data-parallel learners with example-weighted gradient
-averaging). Env runners, the replay buffer and the learner group are thread
-actors of the port's in-process runtime, so ``ray_tpu_torch.init()`` comes
-first. The learners keep their parameters and optimizer state on the card
-(``device=None`` is ``cuda:0``; pass ``device="cpu"`` for the CPU); the env
-runners' policies stay numpy on the host, as the reference's do.
+averaging), and the offline family: BC, MARWIL, CQL and IQL over a fixed
+dataset (``load_offline_data``, ``write_offline_json``). Env runners, the
+replay buffer and the learner group are thread actors of the port's
+in-process runtime, so ``ray_tpu_torch.init()`` comes first; the offline
+algorithms need no runtime. The learners keep their parameters and
+optimizer state on the card (``device=None`` is ``cuda:0``; pass
+``device="cpu"`` for the CPU); the env runners' policies stay numpy on the
+host, as the reference's do.
 
 ``gymnasium`` is imported only where a string ``cfg.env`` is turned into an
 env; a callable env needs none (the reference imports it in every
 ``__init__``). Each learner's ``from_jax(params_np)`` takes a JAX learner's
-parameter tree. Not ported yet (ROADMAP queue 1 item 6b): the offline
-algorithms (BC, MARWIL, CQL), IQL, multi-agent PPO and DreamerV3.
+parameter tree. Not ported yet (ROADMAP queue 1 item 6b): multi-agent PPO
+and DreamerV3.
 """
 
 from ray_tpu_torch.rllib.appo import APPO, APPOConfig, APPOLearner
@@ -23,7 +26,10 @@ from ray_tpu_torch.rllib.connectors import (ClipActions, ClipObs, Connector, Con
 from ray_tpu_torch.rllib.dqn import DQN, DQNConfig, DQNLearner
 from ray_tpu_torch.rllib.env_runner import EnvRunnerGroup, Episode, SingleAgentEnvRunner
 from ray_tpu_torch.rllib.impala import IMPALA, IMPALAConfig, IMPALALearner
+from ray_tpu_torch.rllib.iql import IQL, IQLConfig
 from ray_tpu_torch.rllib.learner_group import LearnerGroup
+from ray_tpu_torch.rllib.offline import (BC, CQL, MARWIL, BCConfig, CQLConfig, MARWILConfig,
+                                         OfflineConfig, load_offline_data, write_offline_json)
 from ray_tpu_torch.rllib.ppo import PPO, PPOConfig, PPOLearner
 from ray_tpu_torch.rllib.replay_buffer import ReplayBuffer
 from ray_tpu_torch.rllib.sac import SAC, SACConfig, SACLearner
@@ -38,6 +44,8 @@ __all__ = ["PPO", "PPOConfig", "PPOLearner", "DQN", "DQNConfig", "DQNLearner",
            "EnvRunnerGroup", "Episode", "SingleAgentEnvRunner",
            "ContinuousSAC", "ContinuousSACConfig", "ContinuousSACLearner",
            "TQC", "TQCConfig", "TQCLearner",
+           "BC", "BCConfig", "MARWIL", "MARWILConfig", "CQL", "CQLConfig", "IQL", "IQLConfig",
+           "OfflineConfig", "load_offline_data", "write_offline_json",
            "Connector", "ConnectorPipeline", "FlattenObs", "ClipObs",
            "NormalizeObs", "FrameStack", "ClipActions", "UnsquashActions",
            "pipeline"]

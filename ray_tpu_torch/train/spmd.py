@@ -14,10 +14,13 @@ argument:
   the global [B, S] batch on every rank, shards a full state on its first
   call (as JAX's ``in_shardings`` would) and gives the full loss and grad
   norm on every rank. Under ``seq > 1`` attention must be a ring
-  (``make_ring_attn_fn``, the default there). ``state_from_jax`` makes a
-  sharded state from the JAX ``TrainState``'s params, and
-  ``make_auto_train_step`` picks this step or refuses a ``pipe`` dim above 1
-  (the pipeline waits for ROADMAP queue 1 item 5a-ii).
+  (``make_ring_attn_fn``, the default there). A ``pipe`` dim acts as a
+  replicated dim here, as in the JAX step, which has no rule for it.
+  ``state_from_jax`` makes a sharded state from the JAX ``TrainState``'s
+  params (``pp_state_from_jax`` one placed for the pipeline step), and
+  ``make_auto_train_step`` picks the GPipe step
+  (``parallel.pipeline.make_pp_train_step``) for a ``pipe`` dim above 1
+  and this step otherwise.
 - ``make_train_step(cfg, optimizer=None, attn_fn=None, device=None)``, with
   an ``Optimizer`` or nothing second, is the one-device step, called
   directly: the state lives on ``device`` (the card unless ``"cpu"`` is
@@ -65,7 +68,6 @@ from ray_tpu_torch.parallel.ring_attention import make_ring_attn_fn
 DECAY_STEPS, END_LR_FRACTION = 10000, 0.1
 B1, B2, EPS = 0.9, 0.95, 1e-8
 MAX_NORM = 1.0
-PIPELINE_ITEM = "ROADMAP queue 1 item 5a-ii"
 
 
 @dataclasses.dataclass
@@ -221,9 +223,16 @@ def mirror_opt_shardings(opt_state: dict, params: dict, param_sh: dict, rep) -> 
             "adamw": _rebuild(params, _mirror(opt_state, params, param_sh, rep))}
 
 
-def state_shardings(cfg: llama.LlamaConfig, mesh, state: TrainState) -> TrainState:
-    """Placements for TrainState: params by logical axes; opt_state mirrors params."""
-    param_sh = shd.tree_shardings(mesh, llama.logical_axes(cfg))
+def _param_shardings(cfg: llama.LlamaConfig, mesh, param_sh: dict | None) -> dict:
+    """``param_sh``, or the placements of the model's logical axes."""
+    return param_sh or shd.tree_shardings(mesh, llama.logical_axes(cfg))
+
+
+def state_shardings(cfg: llama.LlamaConfig, mesh, state: TrainState,
+                    param_sh: dict | None = None) -> TrainState:
+    """Placements for TrainState: params by logical axes (or ``param_sh``);
+    opt_state mirrors params."""
+    param_sh = _param_shardings(cfg, mesh, param_sh)
     rep = shd.replicated(mesh)
     return TrainState(params=param_sh,
                       opt_state=mirror_opt_shardings(state.opt_state, state.params, param_sh,
@@ -231,12 +240,14 @@ def state_shardings(cfg: llama.LlamaConfig, mesh, state: TrainState) -> TrainSta
                       step=rep)
 
 
-def check_opt_shardings(cfg: llama.LlamaConfig, mesh, state: TrainState) -> None:
+def check_opt_shardings(cfg: llama.LlamaConfig, mesh, state: TrainState,
+                        param_sh: dict | None = None) -> None:
     """Raise unless every AdamW state tensor is laid out as
     ``mirror_opt_shardings`` says: each moment exactly as its parameter's
     local shard (shape, dtype, device), so that its global view under the
-    parameter's placements is the parameter's shape."""
-    param_sh = shd.tree_shardings(mesh, llama.logical_axes(cfg))
+    parameter's placements (logical axes, or ``param_sh``) is the
+    parameter's shape."""
+    param_sh = _param_shardings(cfg, mesh, param_sh)
     want = _mirror(state.opt_state, state.params, param_sh, shd.replicated(mesh))
     adamw = state.opt_state["adamw"]
     for name, p, local, sh in zip(_names(state.params), leaves(state.params),
@@ -261,28 +272,43 @@ def _names(tree: dict, prefix: str = "") -> list[str]:
     return out
 
 
-def shard_state(cfg: llama.LlamaConfig, mesh, state: TrainState, optimizer=None) -> TrainState:
-    """``state`` with its params as DTensors on ``mesh``; a state already
-    sharded is returned as it is. A full state must have a fresh optimizer
-    (its moments are not carried over)."""
+def shard_state(cfg: llama.LlamaConfig, mesh, state: TrainState, optimizer=None,
+                param_sh: dict | None = None) -> TrainState:
+    """``state`` with its params as DTensors on ``mesh``, placed by logical
+    axes (or ``param_sh``); a state already sharded is returned as it is. A
+    full state must have a fresh optimizer (its moments are not carried
+    over)."""
     if all(isinstance(p, DTensor) for p in leaves(state.params)):
         return state
     opt = state.opt_state
     if opt.get("count", 0) or opt["adamw"].state:
         raise ValueError("only a state with a fresh optimizer can be sharded")
     optimizer = optimizer or make_optimizer()
-    params = shd.shard_params(state.params, llama.logical_axes(cfg), mesh)
+    params = shd.place_params(state.params, _param_shardings(cfg, mesh, param_sh), mesh)
     return TrainState(params, optimizer.init(params), state.step)
 
 
-def state_from_jax(params_np: dict, cfg: llama.LlamaConfig, mesh, optimizer=None) -> TrainState:
+def state_from_jax(params_np: dict, cfg: llama.LlamaConfig, mesh, optimizer=None,
+                   param_sh: dict | None = None) -> TrainState:
     """The JAX ``TrainState.params`` (numpy arrays, ``jax.tree.map(np.asarray,
     params)``) as a sharded port state with a fresh optimizer: ``from_jax``
-    on the host, then ``shard_params`` onto each rank's device."""
+    on the host, then each rank's shard (placed by logical axes, or
+    ``param_sh``) onto its device."""
     optimizer = optimizer or make_optimizer()
     params = llama.from_jax(params_np, cfg, device="cpu")
-    params = shd.shard_params(params, llama.logical_axes(cfg), mesh)
+    params = shd.place_params(params, _param_shardings(cfg, mesh, param_sh), mesh)
     return TrainState(params, optimizer.init(params), 0)
+
+
+def pp_state_from_jax(params_np: dict, cfg: llama.LlamaConfig, mesh,
+                      optimizer=None) -> TrainState:
+    """``state_from_jax`` placed for the pipeline step
+    (``parallel.pipeline.param_specs``: layers over ``pipe`` and
+    ``tensor``, the rest replicated)."""
+    from ray_tpu_torch.parallel.pipeline import param_specs
+
+    return state_from_jax(params_np, cfg, mesh, optimizer,
+                          param_specs(cfg, mesh.mesh_dim_names))
 
 
 def _mesh_global_norm(grads, placements, ctx: mp.MeshContext) -> torch.Tensor:
@@ -299,9 +325,6 @@ def _make_mesh_train_step(cfg, mesh, optimizer=None, attn_fn=None) -> Callable:
     ctx = mp.MeshContext(mesh)
     mp.check_splits(cfg, ctx)
     shape = mesh_shape(mesh)
-    if shape.get("pipe", 1) > 1:
-        raise NotImplementedError(f"a pipe dim above 1 needs the pipeline step (GPipe "
-                                  f"microbatches over 'pipe'), which waits for {PIPELINE_ITEM}")
     if shape.get("seq", 1) > 1:
         attn_fn = attn_fn or make_ring_attn_fn(mesh, "seq")
         if getattr(attn_fn, "seq_axis", None) != "seq":
@@ -353,7 +376,12 @@ def _make_mesh_train_step(cfg, mesh, optimizer=None, attn_fn=None) -> Callable:
 def make_auto_train_step(cfg: llama.LlamaConfig, mesh, optimizer=None,
                          attn_fn: Callable | None = None, num_microbatches: int = 2) -> Callable:
     """The train step for the mesh's layout: the GPipe pipeline step of
-    ``num_microbatches`` when a ``pipe`` dim above 1 is present (not ported
-    yet: ``make_train_step`` refuses that mesh), the single-program mesh
-    step otherwise. Returns compile_step(state)."""
+    ``num_microbatches`` (``parallel.pipeline.make_pp_train_step``) when a
+    ``pipe`` dim above 1 is present, the single-program mesh step
+    otherwise. Returns compile_step(state)."""
+    if mesh_shape(mesh).get("pipe", 1) > 1:
+        from ray_tpu_torch.parallel.pipeline import make_pp_train_step
+
+        return make_pp_train_step(cfg, mesh, num_microbatches, optimizer=optimizer,
+                                  attn_fn=attn_fn)
     return make_train_step(cfg, mesh, optimizer=optimizer, attn_fn=attn_fn)

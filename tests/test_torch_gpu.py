@@ -864,3 +864,93 @@ def test_ring_tile_math_matches_the_flash_forward(world_one_nccl, cuda, dtype):
     got = ring_attention(q, k, v, world_one_nccl, seq_axis="seq")
     want = fa.flash_attention(q, k, v, causal=True)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("attn", ["dense", "flash"])
+def test_world_one_pp_step_matches_the_one_device_step(world_one_nccl, cuda, attn):
+    """The GPipe step (parallel.pipeline) on a one-rank NCCL mesh (pipe 1)
+    in 2 microbatches against the one-device step from the same weights
+    and batch, tiny config in float32: the same arithmetic but for the
+    microbatch split, so loss and grad norm within rtol 1e-5 and
+    parameters atol 5e-5 after three steps at lr 1e-3 (the split sums each
+    gradient in another order, and Adam turns that into parameter gaps
+    where a gradient is near zero: one element of the embedding read
+    1.17e-5 and one of a layer 1.22e-5 on the H100; the mesh step, the
+    same sums, holds 1e-5); with attn_fn = flash each of the three kernels
+    runs L times a microbatch (no remat), 2 L a step."""
+    from ray_tpu_torch.parallel import pipeline
+
+    cfg = llama.LlamaConfig.tiny()
+    attn_fn = fa.flash_attention if attn == "flash" else None
+    opt = spmd.make_optimizer(1e-3, warmup=1)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 64))
+    targets = np.concatenate([tokens[:, 1:], np.full((4, 1), -100)], axis=1)
+    runs = {}
+    for label in ("device", "pipeline"):
+        state = spmd.init_state(cfg, torch.Generator(cuda).manual_seed(0), opt, device=cuda)
+        if label == "pipeline":
+            step = pipeline.make_pp_train_step(cfg, world_one_nccl, 2, opt, attn_fn)(state)
+        else:
+            step = spmd.make_train_step(cfg, opt, attn_fn, device=cuda)
+        before = (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+        seen = []
+        for _ in range(3):
+            state, m = step(state, tokens, targets)
+            seen.append((m["loss"].item(), m["grad_norm"].item()))
+        launches = tuple(a - b for a, b in zip(
+            (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches), before))
+        params = spmd.leaves(state.params)  # the order of llama.init's tree in both
+        runs[label] = (seen, [p.to_local() if hasattr(p, "to_local") else p for p in params],
+                       launches)
+    np.testing.assert_allclose(runs["pipeline"][0], runs["device"][0], rtol=1e-5)
+    for got, want in zip(runs["pipeline"][1], runs["device"][1]):
+        torch.testing.assert_close(got, want, atol=5e-5, rtol=0)
+    L = cfg.num_layers
+    want = {"device": (3 * L,) * 3, "pipeline": (6 * L,) * 3} if attn == "flash" else {
+        "device": (0, 0, 0), "pipeline": (0, 0, 0)}
+    assert {k: r[2] for k, r in runs.items()} == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["bc", "marwil", "cql", "iql"])
+def test_offline_algorithm_on_card_matches_cpu(cuda, name):
+    """An offline algorithm built without a device (cuda:0) against one on
+    the CPU from the same seed and dataset (CartPole's shapes, or
+    Pendulum's for IQL): ``train(3)`` draws the same minibatches on both,
+    the last update's metrics within rtol 1e-5 / atol 1e-6 and the
+    parameters and targets within 5e-6 (float32, matmuls without TF32; the
+    limits of the online learners' card test)."""
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.rllib import optim
+    from ray_tpu_torch.rllib.np_policy import to_numpy_params
+
+    r = np.random.default_rng(0)
+    obs_dim = 3 if name == "iql" else 4
+    data = {"obs": r.normal(size=(500, obs_dim)).astype(np.float32),
+            "actions": (r.uniform(-1, 1, (500, 1)).astype(np.float32) if name == "iql"
+                        else r.integers(0, 2, 500)),
+            "rewards": r.normal(size=500).astype(np.float32),
+            "next_obs": r.normal(size=(500, obs_dim)).astype(np.float32),
+            "dones": (r.random(500) < 0.1).astype(np.float32)}
+    cfg_cls = {"bc": rllib.BCConfig, "marwil": rllib.MARWILConfig,
+               "cql": rllib.CQLConfig, "iql": rllib.IQLConfig}[name]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        on_card = cfg_cls(target_update_freq=2) if name == "cql" else cfg_cls()
+        on_card = on_card.offline_data(data).build()
+        on_cpu = cfg_cls(target_update_freq=2) if name == "cql" else cfg_cls()
+        on_cpu = on_cpu.offline_data(data).build(device="cpu")
+        assert on_card.device == cuda
+        got, want = on_card.train(3), on_cpu.train(3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-6, err_msg=k)
+    for attr in ("params", "target_params", "target"):
+        if hasattr(on_cpu, attr):
+            for a, b in zip(*(optim.tree_leaves(to_numpy_params(getattr(x, attr)))
+                              for x in (on_card, on_cpu))):
+                np.testing.assert_allclose(a, b, rtol=0, atol=5e-6, err_msg=attr)

@@ -1,6 +1,7 @@
 """The port's parallel layer in one process: ray_tpu_torch.parallel's mesh
-spec, rule table, placements, logical-axis trees, ring-attention tile and
-host collectives against ray_tpu.parallel on the same inputs (numpy from a
+spec, rule table, placements, logical-axis trees, the pipeline step's
+placement trees and refusals, ring-attention tile and host collectives
+against ray_tpu.parallel on the same inputs (numpy from a
 seed), and the rank launcher's deadline and failure handling.
 
 Tolerances: the attention tile in float32 on both sides, atol 1e-6 (the
@@ -14,7 +15,9 @@ import signal
 import threading
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,12 +28,14 @@ from torch.distributed.tensor import Replicate, Shard
 from ray_tpu.models import llama as jl
 from ray_tpu.models import moe as jm
 from ray_tpu.parallel import mesh as jmesh
+from ray_tpu.parallel import pipeline as jpipe
 from ray_tpu.parallel import ring_attention as jring
 from ray_tpu.parallel import sharding as jshd
 from ray_tpu_torch.models import llama as tl
 from ray_tpu_torch.models import moe as tm
 from ray_tpu_torch.parallel import collectives, launch
 from ray_tpu_torch.parallel import mesh as tmesh
+from ray_tpu_torch.parallel import pipeline as tpipe
 from ray_tpu_torch.parallel import ring_attention as tring
 from ray_tpu_torch.parallel import sharding as tshd
 
@@ -154,6 +159,54 @@ def test_spec_from_logical_refuses_what_a_dtensor_cannot_hold():
         tshd.spec_from_logical(("b",), {"b": ("fsdp", "data")})
     with pytest.raises(ValueError, match="two tensor dims"):
         tshd.spec_from_logical(("heads", "mlp"))
+
+
+# ---------------------------------------------------------------- pipeline
+def _pp_trees(tied: bool):
+    jcfg = dataclasses.replace(jl.LlamaConfig.tiny(), tie_embeddings=tied)
+    tcfg = dataclasses.replace(tl.LlamaConfig.tiny(), tie_embeddings=tied)
+    return jpipe.param_specs(jcfg), tpipe.param_specs(tcfg)
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_pp_placement_trees_match_jax_partition_specs(tied):
+    want, got = _pp_trees(tied)
+    assert list(got) == list(want) and list(got["layers"]) == list(want["layers"])
+    for k, spec in want["layers"].items():
+        assert got["layers"][k] == _placements_of(spec, len(spec)), k
+    for k in (k for k in want if k != "layers"):
+        assert got[k] == _placements_of(want[k], len(want[k])), k
+    assert tpipe.BATCH_SPEC == _placements_of(jpipe.BATCH_SPEC, 2)
+    assert got["layers"]["wo"] == [Replicate(), Shard(0), Replicate(), Shard(1), Replicate(),
+                                   Replicate()]
+
+
+# (mesh dim names, sizes, LlamaConfig overrides): each a ValueError of _check
+PP_REFUSALS = {
+    "no_pipe_axis": (("data", "fsdp"), (2, 2), {}),
+    "seq": (jmesh.AXES, (1, 2, 1, 2, 2, 1), {}),
+    "expert": (jmesh.AXES, (1, 2, 1, 1, 1, 2), {}),
+    "layers_over_pipe": (jmesh.AXES, (1, 2, 1, 1, 1, 1), {"num_layers": 3}),
+    "heads_over_tensor": (jmesh.AXES, (1, 1, 1, 4, 1, 1), {"num_heads": 6}),
+    "kv_heads_over_tensor": (jmesh.AXES, (1, 1, 1, 4, 1, 1), {}),
+}
+
+
+@pytest.mark.parametrize("case", list(PP_REFUSALS))
+def test_pp_refusals_match_jax(case):
+    """The PP step refuses what the reference refuses, with its message,
+    before it touches the mesh's groups (a stand-in mesh of names and sizes)."""
+    names, sizes, overrides = PP_REFUSALS[case]
+    jcfg = dataclasses.replace(jl.LlamaConfig.tiny(), **overrides)
+    tcfg = dataclasses.replace(tl.LlamaConfig.tiny(), **overrides)
+    devices = np.array(jax.devices("cpu")[:int(np.prod(sizes))]).reshape(sizes)
+    with pytest.raises(ValueError) as want:
+        jpipe.make_pp_loss_and_grad(jcfg, jax.sharding.Mesh(devices, names), 2)
+    stand_in = SimpleNamespace(mesh_dim_names=names, mesh=np.zeros(sizes))
+    for make in (tpipe.make_pp_loss_and_grad, tpipe.make_pp_train_step):
+        with pytest.raises(ValueError) as got:
+            make(tcfg, stand_in, 2)
+        assert str(got.value) == str(want.value)
 
 
 # ---------------------------------------------------------------- ring attention tile

@@ -47,8 +47,8 @@ from ray_tpu.rllib.env_runner import SingleAgentEnvRunner as JRunner
 from ray_tpu.rllib.np_policy import actor_critic_policy_fn as j_policy
 
 import ray_tpu_torch as rt
-from ray_tpu_torch.rllib import (appo, dqn, impala, optim, ppo, replay_buffer, sac,
-                                 sac_continuous, tqc)
+from ray_tpu_torch.rllib import (appo, dqn, impala, iql, offline, optim, ppo, replay_buffer,
+                                 sac, sac_continuous, tqc)
 from ray_tpu_torch.rllib.env_runner import Episode, SingleAgentEnvRunner
 from ray_tpu_torch.rllib.np_policy import actor_critic_policy_fn, to_numpy_params
 
@@ -299,6 +299,14 @@ def test_learners_without_device_raise_when_no_card(monkeypatch):
             p_learner(p_cfg(**kw), *dims)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ppo.PPOConfig().build()  # the algorithm's learner, before any actor
+    # the offline algorithms (BC, MARWIL, CQL, IQL) build their learner the same way
+    rows = {"obs": np.zeros((4, 3), np.float32), "actions": np.array([0, 1, 1, 0]),
+            "rewards": np.zeros(4, np.float32), "next_obs": np.zeros((4, 3), np.float32),
+            "dones": np.zeros(4, np.float32)}
+    for cfg in (offline.BCConfig(), offline.MARWILConfig(), offline.CQLConfig(),
+                iql.IQLConfig()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cfg.offline_data(rows).build()
 
 
 # ---------------------------------------------------------- host-side parts

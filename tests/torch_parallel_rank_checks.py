@@ -29,6 +29,8 @@ LAYOUTS = [
     ("tensor_flash", dict(data=2, fsdp=2, tensor=2), "flash", None),
     # 2 kv heads over 4 ranks: each rank gathers wk/wv and takes its kv head
     ("data2_tensor4", dict(data=2, tensor=4), "dense", None),
+    # the mesh step on a pipe mesh: pipe acts as a replicated dim
+    ("data2_pipe2_tensor2", dict(data=2, pipe=2, tensor=2), "dense", None),
 ]
 STEPS = 3
 LR, WARMUP = 1e-3, 1
@@ -36,6 +38,14 @@ B, S = 4, 32
 RING_SHAPE = dict(B=2, S=64, Hq=4, Hkv=2, D=16)
 COLLECTIVE_AXIS = "expert"  # size 4 in the data 2 x expert 4 mesh
 PERM = [(0, 1), (1, 2), (2, 0)]  # position 3 sends and receives nothing
+# the pipeline step (tests/test_pipeline.py's _tiny_cfg, float32, no remat):
+# (name, mesh dims, microbatches, batch) for the loss and gradients
+PP_CFG = dict(vocab_size=128, hidden_size=32, intermediate_size=64, num_heads=4, num_kv_heads=2,
+              max_seq_len=32, rope_theta=10000.0, remat=False)
+PP_CASES = [("pipe2_fsdp2_tensor2", dict(data=1, pipe=2, fsdp=2, tensor=2), 2, 4),
+            ("pipe4_tensor2", dict(data=1, pipe=4, tensor=2), 3, 6)]
+PP_TRAIN_DIMS = dict(data=1, pipe=2, fsdp=2, tensor=2)
+PP_TRAIN_STEPS, PP_TRAIN_LR, PP_SEQ = 6, 1e-2, 16
 
 
 def batch(seed: int = 0, vocab: int = 256):
@@ -46,6 +56,14 @@ def batch(seed: int = 0, vocab: int = 256):
     targets = np.concatenate([tokens[:, 1:], np.full((B, 1), -100, np.int32)], axis=1)
     targets[rng.random((B, S)) < 0.15] = -100
     targets[0, : S // 2] = -100  # one data shard far fewer valid targets than the others
+    return tokens, targets
+
+
+def pp_batch(batch: int, seed: int):
+    """Tokens and targets [batch, PP_SEQ] over PP_CFG's vocabulary."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, PP_CFG["vocab_size"], (batch, PP_SEQ)).astype(np.int32)
+    targets = rng.integers(0, PP_CFG["vocab_size"], (batch, PP_SEQ)).astype(np.int32)
     return tokens, targets
 
 
@@ -81,19 +99,24 @@ def _flat(params) -> dict:
     return {k: (v.full_tensor() if isinstance(v, DTensor) else v).detach() for k, v in out.items()}
 
 
-def _llama_layouts(rank: int, args: dict, out: dict) -> None:
-    from ray_tpu_torch.models import llama
-    from ray_tpu_torch.ops.flash_attention import flash_attention
-    from ray_tpu_torch.parallel.mesh import make_mesh
-    from ray_tpu_torch.train import spmd
-
-    with np.load(args["llama_npz"]) as f:
+def _load_tree(path: str) -> dict:
+    with np.load(path) as f:
         params_np = {"layers": {}}
         for k in f.files:
             if k.startswith("layers."):
                 params_np["layers"][k[len("layers."):]] = f[k]
             else:
                 params_np[k] = f[k]
+    return params_np
+
+
+def _llama_layouts(rank: int, args: dict, out: dict) -> None:
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    from ray_tpu_torch.train import spmd
+
+    params_np = _load_tree(args["llama_npz"])
     tokens, targets = batch()
     for name, dims, attn, remat in LAYOUTS:
         cfg = llama.LlamaConfig.tiny()
@@ -123,13 +146,7 @@ def _moe(rank: int, args: dict, out: dict) -> None:
     from ray_tpu_torch.parallel.mesh import make_mesh
     from ray_tpu_torch.parallel.model_parallel import moe_forward
 
-    with np.load(args["moe_npz"]) as f:
-        params_np = {"layers": {}}
-        for k in f.files:
-            if k.startswith("layers."):
-                params_np["layers"][k[len("layers."):]] = f[k]
-            else:
-                params_np[k] = f[k]
+    params_np = _load_tree(args["moe_npz"])
     cfg = moe.MoEConfig.tiny()
     mesh = make_mesh(8, data=2, expert=4, device_type="cpu")
     params = shd.shard_params(moe.from_jax(params_np, cfg, "cpu"), moe.logical_axes(cfg), mesh)
@@ -139,6 +156,54 @@ def _moe(rank: int, args: dict, out: dict) -> None:
     if rank == 0:
         out["moe.logits"] = full
         out["moe.aux"] = aux.detach()
+
+
+def pp_cfg(layers: int):
+    from ray_tpu_torch.models import llama
+
+    return llama.LlamaConfig(num_layers=layers, dtype=torch.float32, **PP_CFG)
+
+
+def _pipeline(rank: int, args: dict, out: dict) -> None:
+    """The PP loss and gradients of each PP_CASES layout, PP_TRAIN_STEPS
+    pipeline train steps, and make_auto_train_step on a pipe mesh, from the
+    JAX init's weights."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import pipeline
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    from ray_tpu_torch.train import spmd
+
+    cfg = pp_cfg(4)
+    for name, dims, microbatches, n in PP_CASES:
+        mesh = make_mesh(8, **dims, device_type="cpu")
+        params = llama.from_jax(_load_tree(args["pp_grad_npz"]), cfg, "cpu")
+        loss, grads = pipeline.make_pp_loss_and_grad(cfg, mesh, microbatches)(
+            params, *pp_batch(n, 1))
+        full = _flat(grads)
+        out[f"pp.{name}.loss"] = loss
+        if rank == 0:
+            out.update({f"pp.{name}.grad.{k}": v for k, v in full.items()})
+    cfg = pp_cfg(2)
+    mesh = make_mesh(8, **PP_TRAIN_DIMS, device_type="cpu")
+    opt = spmd.make_optimizer(PP_TRAIN_LR, warmup=1)
+    state = spmd.pp_state_from_jax(_load_tree(args["pp_train_npz"]), cfg, mesh, opt)
+    step = pipeline.make_pp_train_step(cfg, mesh, 2, optimizer=opt)(state)
+    tokens, targets = pp_batch(4, 2)
+    losses, norms = [], []
+    for _ in range(PP_TRAIN_STEPS):
+        state, m = step(state, tokens, targets)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    full = _flat(state.params)
+    if rank == 0:
+        out["pp.train.loss"], out["pp.train.grad_norm"] = np.array(losses), np.array(norms)
+        out.update({f"pp.train.param.{k}": v for k, v in full.items()})
+    # the auto step on the pipe mesh, one step from the JAX init's weights
+    state = spmd.pp_state_from_jax(_load_tree(args["pp_auto_npz"]), cfg, mesh)
+    step = spmd.make_auto_train_step(cfg, mesh, num_microbatches=2)(state)
+    _, m = step(state, *pp_batch(4, 5))
+    if rank == 0:
+        out["pp.auto.loss"], out["pp.auto.module"] = float(m["loss"]), step.__module__
 
 
 def _ring(rank: int, out: dict) -> None:
@@ -208,10 +273,15 @@ def world_checks(rank: int, world: int, args: dict) -> dict:
     out: dict = {}
     t0 = time.monotonic()
     _llama_layouts(rank, args, out)
+    t1 = time.monotonic()
+    _pipeline(rank, args, out)
+    out["pipeline_seconds"] = time.monotonic() - t1
     _moe(rank, args, out)
     _ring(rank, out)
     _collectives(rank, out)
+    t1 = time.monotonic()
     out["dryrun_lines"] = dryrun_rank(rank, world, {"device_type": "cpu"})["lines"]
+    out["dryrun_seconds"] = time.monotonic() - t1
     out["seconds"] = time.monotonic() - t0
     return out
 
