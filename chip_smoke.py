@@ -138,7 +138,19 @@
    LearnerGroup of 2 PPO learners on the card against one learner on the
    full batch. PPO.train() and DQN.train(), 2 iterations each, with 2 env
    runners over NumpyCartPole (defined here: the card machine has no
-   gymnasium), sample and learn seconds apart.
+   gymnasium), sample and learn seconds apart. Multi-agent PPO at the
+   reference's defaults over TwoAgentCueGame (two policies, two env
+   runners), every learner on the card; one policy's batch through a card
+   and a CPU learner from the same weights (metrics and parameters within
+   the learners' limits), then RL_TRAIN_ITERS iterations, sample and learn
+   seconds apart, and a policy update's launches and idle share. DreamerV3
+   at DreamerV3Config()'s defaults (the reference's full width) over
+   NumpyCartPole: from the same weights, batch and Gumbel noise one world-
+   model update and one actor-critic update on the card and on the CPU
+   draw the same one-hots (the smallest top-2 margin of a draw is logged)
+   and agree in metrics and parameters; then each update's median ms,
+   launches and idle share, policy_step's median ms, and one train() in
+   collect and learn seconds.
 9. Parallel layer (ray_tpu_torch.parallel), after the training path, whose
    state it frees first: a world of one rank over NCCL (FileStore
    rendezvous in a temporary directory) and a mesh of that rank with every
@@ -161,6 +173,13 @@
    over 3 steps. The process group is destroyed; then dryrun_multichip(8)
    on 8 CPU ranks over gloo, through the rank launcher under a 120 s
    deadline, prints its lines, the pipeline's (pipe 2) among them.
+10. Tune (ray_tpu_torch.tune), after RLlib: a Tuner with ASHAScheduler over
+   a grid of TUNE_LRS, each trial a PPOLearner made without a device
+   (cuda:0) taking TUNE_ITERS updates on a fixed batch and reporting its
+   loss. One trial at a time, every trial's state and metric history must
+   equal the same run with CPU learners (metrics within the learners'
+   limits), and ASHA must stop at least one; then two at a time, its wall
+   and trials a second, leaving no non-daemon thread.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {...}}. Exits non-zero, before any result, without a
@@ -381,6 +400,24 @@ RL_OFFLINE = {"bc": rllib.BCConfig, "marwil": rllib.MARWILConfig, "cql": rllib.C
               "iql": rllib.IQLConfig}
 RL_OFFLINE_ROWS = 1000
 RL_TRAIN_ITERS = 2
+# DreamerV3 card vs CPU: the outputs that pass through the 16-step
+# recurrence (world-model metrics, the imagined return and the actor and
+# critic losses) at the limit tests/test_torch_rllib_dreamerv3.py gives them
+# against JAX; the rest at RL_METRIC_TOL. DREAMER_TIMED calls timed each.
+DREAMER_RECURRENT_TOL = dict(rtol=1e-4, atol=1e-6)
+DREAMER_WM_METRICS = ("wm_loss", "recon", "reward", "continue", "kl_dyn", "kl_rep")
+DREAMER_TIMED, DREAMER_POLICY_STEPS = 10, 200
+# A categorical draw can part card from CPU only where the top two perturbed
+# logits lie within their rounding (float32 MLP outputs of size ~3: a few
+# 1e-7). The card-vs-CPU check needs every draw clear of that, so its noise
+# seed starts at SEED + 9 and moves on (at most DREAMER_NOISE_TRIES seeds)
+# until every CPU draw's top-2 margin exceeds DREAMER_TIE_MARGIN; the seeds
+# passed over and their margins are logged.
+DREAMER_TIE_MARGIN, DREAMER_NOISE_TRIES = 1e-5, 5
+# Tune: 4 trials (PPO learners at these learning rates, falling, so a later
+# trial's loss can lose a rung to an earlier one's), TUNE_ITERS reports
+# each, ASHA rungs at 1, 2, 4 and 8 reports
+TUNE_LRS, TUNE_ITERS = (3e-3, 1e-3, 3e-4, 1e-4), 8
 # the world-1 mesh step against the one-device step, set before the first
 # card run: both run the same ops but for the vocab-parallel loss's sum and
 # the norm's reduction order, so they may part by bf16 rounding of a few
@@ -3044,10 +3081,269 @@ def rl_train_phase(card: str) -> None:
             iterations=[{**r, "learn_s": r["seconds"] - r["sample_s"]} for r in rows])
 
 
+class TwoAgentCueGame:
+    """Two agents, each shown a +/-1 cue and rewarded 1 for the matching
+    action; shared episodes of 16 steps (tests/test_rllib_offline.py's
+    _TargetGame)."""
+
+    possible_agents = ["a0", "a1"]
+
+    def __init__(self, seed=0):
+        self.rng = np.random.default_rng(seed)
+        self.t, self.cues = 0, {}
+
+    def _obs(self):
+        self.cues = {a: int(self.rng.integers(2)) for a in self.possible_agents}
+        return {a: np.asarray([1.0 if c else -1.0, 1.0], np.float32)
+                for a, c in self.cues.items()}
+
+    def reset(self, seed=None):
+        self.t = 0
+        return self._obs(), {}
+
+    def step(self, action_dict):
+        rews = {a: float(action_dict[a] == self.cues[a]) for a in self.possible_agents}
+        self.t += 1
+        return self._obs(), rews, {"__all__": self.t >= 16}, {"__all__": False}, {}
+
+    def close(self) -> None:
+        pass
+
+
+def assert_close_metrics(got: dict, want: dict, what: str, loose=(),
+                         loose_tol=DREAMER_RECURRENT_TOL) -> float:
+    """Every metric within RL_METRIC_TOL (those in `loose` within
+    `loose_tol`); the largest relative gap."""
+    assert set(got) == set(want), (what, sorted(got), sorted(want))
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], **(loose_tol if k in loose else RL_METRIC_TOL),
+                                   err_msg=f"{what} {k}")
+    return max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in want)
+
+
+def max_param_gap(card_tree, cpu_tree, what: str) -> float:
+    got, want = (rllib.optim.tree_leaves(rllib.np_policy.to_numpy_params(t))
+                 for t in (card_tree, cpu_tree))
+    assert len(got) == len(want) > 0, what
+    err = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+    assert err <= RL_PARAM_ATOL, (what, err)
+    return err
+
+
+def rl_multi_agent_phase(card: str) -> None:
+    """MultiAgentPPO at the reference's defaults (2 env runners of 256 steps,
+    hidden (64, 64), 4 epochs of 128-row minibatches) over TwoAgentCueGame
+    with one policy per agent: the learners on cuda:0; one policy's batch
+    through a card and a CPU learner from the same weights; then
+    RL_TRAIN_ITERS iterations with sample and learn seconds apart."""
+    from ray_tpu_torch.rllib.multi_agent import policy_batch
+
+    cfg = rllib.MultiAgentPPOConfig().environment(TwoAgentCueGame).multi_agent(
+        policies={"p0": (2, 2), "p1": (2, 2)}, policy_mapping={"a0": "p0", "a1": "p1"})
+    algo = cfg.build()  # no device: cuda:0
+    learn_s = []
+    try:
+        assert len(algo.runners) == 2 and cfg.rollout_fragment_length == 256
+        for pid, ln in algo.learners.items():
+            assert ln.device == DEVICE and all(
+                t.device == DEVICE for t in rllib.optim.tree_leaves(ln.params)), pid
+        episodes = ray_tpu_torch.get(algo.runners[0].sample.remote(cfg.rollout_fragment_length),
+                                     timeout=600)["p0"]
+        batch = policy_batch(cfg, episodes)
+        on_card, on_cpu = rllib.PPOLearner(cfg, 2, 2), rllib.PPOLearner(cfg, 2, 2, device="cpu")
+        on_card.from_jax(on_cpu.get_params())
+        got, want = (rllib.ppo.minibatch_sgd(ln.update, batch, cfg.num_epochs, cfg.minibatch_size,
+                                             rng=np.random.default_rng(SEED))
+                     for ln in (on_card, on_cpu))
+        metric_err = assert_close_metrics(got, want, "multi-agent p0")
+        param_err = max_param_gap(on_card.params, on_cpu.params, "multi-agent p0")
+        minibatch = {k: v[:cfg.minibatch_size] for k, v in batch.items()}
+        timing = rl_timings(on_card, on_cpu, minibatch)
+        for ln in algo.learners.values():
+            def timed_update(b, update=ln.update):
+                t0 = time.perf_counter()
+                out = update(b)
+                learn_s[-1] += time.perf_counter() - t0
+                return out
+
+            ln.update = timed_update
+        rows = []
+        for _ in range(RL_TRAIN_ITERS):
+            learn_s.append(0.0)
+            t0 = time.perf_counter()
+            out = algo.train()
+            seconds = time.perf_counter() - t0
+            assert sorted(out["policies"]) == ["p0", "p1"], out
+            assert all(math.isfinite(v) for m in out["policies"].values() for v in m.values())
+            rows.append({"seconds": seconds, "learn_s": learn_s[-1],
+                         "sample_s": seconds - learn_s[-1],
+                         "episode_reward_mean": out["episode_reward_mean"],
+                         "total_loss": {p: m["total_loss"] for p, m in out["policies"].items()}})
+        assert all(t.device == DEVICE for ln in algo.learners.values()
+                   for t in rllib.optim.tree_leaves(ln.params))
+    finally:
+        algo.stop()
+    log(card, "rllib MultiAgentPPO: one policy's batch card vs CPU, then timed, then "
+        f"{RL_TRAIN_ITERS} iterations with 2 env runners over TwoAgentCueGame",
+        batch_rows=len(batch["obs"]), updates=cfg.num_epochs * (len(batch["obs"])
+                                                                  // cfg.minibatch_size),
+        metrics_max_rel_err=metric_err, params_max_abs_err=param_err, **timing,
+        iterations=rows)
+
+
+def profile_ms(fn, calls: int) -> dict:
+    """torch.profiler over `calls` calls of fn (each ending in a sync): the
+    wall, device busy ms, kernel launches and idle share a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / calls
+    dev, _ = device_events(prof)
+    if not dev:
+        return {"device_busy_ms": "not measured", "launches": "not measured",
+                "device_idle_share": "not measured", "profiled_wall_ms": wall}
+    busy = sum(e.self_device_time_total for e in dev) / 1e3 / calls
+    return {"device_busy_ms": busy, "launches": sum(e.count for e in dev) / calls,
+            "device_idle_share": 1 - busy / wall, "profiled_wall_ms": wall}
+
+
+def median_call_ms(fn, calls: int) -> float:
+    out = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(out)
+
+
+def rl_dreamer_phase(card: str) -> None:
+    """DreamerV3 at DreamerV3Config()'s defaults over NumpyCartPole: (a) from
+    the same weights, batch and Gumbel noise, one world-model update and one
+    actor-critic update on the card and on the CPU draw the same one-hots and
+    agree in metrics and parameters; (b) each update's median ms, launches
+    and idle share on the card, policy_step's median ms (with the host read
+    of its action, as the collector does), and one train() in collect and
+    learn seconds."""
+    from ray_tpu_torch.rllib import dreamerv3 as d3
+
+    to_np = rllib.np_policy.to_numpy_params
+    on_cpu = rllib.DreamerV3Config(env=NumpyCartPole).build(device="cpu")
+    on_card = rllib.DreamerV3Config(env=NumpyCartPole).build()  # no device: cuda:0
+    cfg = on_card.cfg
+    assert on_card.device == DEVICE and on_card.generator.device == DEVICE
+    assert all(t.device == DEVICE for tree in (on_card.wm, on_card.actor, on_card.critic)
+               for t in rllib.optim.tree_leaves(tree))
+    start = tuple(to_np(t) for t in (on_cpu.wm, on_cpu.actor, on_cpu.critic))
+    on_cpu._collect()  # a replay buffer of collect_episodes episodes, on the CPU
+    batch = on_cpu._sample_batch()
+    G, C, A = cfg.stoch_groups, cfg.stoch_classes, on_card.num_actions
+    B, T, n = cfg.batch_size, cfg.batch_length, cfg.batch_size * cfg.batch_length
+    categorical = d3.categorical
+
+    def one_step(algo, noise):
+        """One wm_update and one ac_update from `start`: metrics, the draws'
+        indices and their smallest top-2 margin."""
+        algo.from_jax(*start)
+        draws, margins = [], []
+
+        def draw(logits, g):
+            top2 = torch.topk((g + logits).detach(), 2, dim=-1).values
+            margins.append(float((top2[..., 0] - top2[..., 1]).min()))
+            idx = categorical(logits, g)
+            draws.append(idx.cpu())
+            return idx
+
+        d3.categorical = draw
+        try:
+            aux = algo.wm_update(batch, noise[0])
+            hs, zs = aux.pop("hs"), aux.pop("zs")
+            ac = algo.ac_update(hs.reshape(n, -1), zs.reshape(n, -1), *noise[1:])
+        finally:
+            d3.categorical = categorical
+        return {k: float(v) for k, v in {**aux, **ac}.items()}, draws, min(margins)
+
+    passed_over = []
+    for seed in range(SEED + 9, SEED + 9 + DREAMER_NOISE_TRIES):
+        gen = torch.Generator().manual_seed(seed)
+        noise = (d3.gumbel((T, B, G, C), gen, "cpu"), d3.gumbel((cfg.horizon, n, A), gen, "cpu"),
+                 d3.gumbel((cfg.horizon, n, G, C), gen, "cpu"))
+        want, cpu_draws, margin = one_step(on_cpu, noise)
+        if margin > DREAMER_TIE_MARGIN:
+            break
+        passed_over.append({"seed": seed, "smallest_top2_margin": margin})
+    else:
+        raise AssertionError(f"no noise seed clear of near-ties: {passed_over}")
+    got, card_draws, card_margin = one_step(on_card, noise)
+    out = {"card": got, "cpu": want}
+    assert len(card_draws) == len(cpu_draws) == T + 2 * cfg.horizon
+    assert all(torch.equal(a, b) for a, b in zip(card_draws, cpu_draws))
+    metric_err = assert_close_metrics(out["card"], out["cpu"], "dreamer",
+                                      loose=DREAMER_WM_METRICS + ("imagined_return",
+                                                                  "actor_loss", "critic_loss"))
+    param_err = max(max_param_gap(getattr(on_card, k), getattr(on_cpu, k), f"dreamer {k}")
+                    for k in ("wm", "actor", "critic"))
+    log(card, "rllib DreamerV3 (defaults): one world-model and one actor-critic update, card "
+        "vs CPU from the same weights, batch and Gumbel noise",
+        draw_calls=len(cpu_draws), draws=sum(d.numel() for d in cpu_draws), draws_equal=True,
+        noise_seed=seed, seeds_passed_over=passed_over, smallest_top2_margin=margin,
+        smallest_top2_margin_card=card_margin,
+        metrics_max_rel_err=metric_err, params_max_abs_err=param_err, card_metrics=out["card"])
+
+    # (b) timings on the card
+    def wm_call():
+        aux = on_card.wm_update(batch, on_card.gumbel((T, B, G, C)))
+        wm_call.states = aux["hs"].reshape(n, -1), aux["zs"].reshape(n, -1)
+
+    def ac_call():
+        on_card.ac_update(*wm_call.states, on_card.gumbel((cfg.horizon, n, A)),
+                          on_card.gumbel((cfg.horizon, n, G, C)))
+
+    h = torch.zeros((1, cfg.deter_dim), device=DEVICE)
+    z = torch.zeros((1, G * C), device=DEVICE)
+    obs = torch.zeros((1, on_card.obs_dim), device=DEVICE)
+
+    def policy_call():
+        noise = on_card.gumbel((1, G * C + A))
+        _, _, a = d3.policy_step(cfg, on_card.wm, on_card.actor, h, z, obs,
+                                 noise[:, :G * C].reshape(1, G, C), noise[:, G * C:])
+        int(a[0])
+
+    rows = {}
+    for name, fn, calls in (("wm_update", wm_call, DREAMER_TIMED),
+                            ("ac_update", ac_call, DREAMER_TIMED),
+                            ("policy_step", policy_call, DREAMER_POLICY_STEPS)):
+        fn()  # warm
+        rows[name] = {"median_ms": median_call_ms(fn, calls), **profile_ms(fn, 3)}
+    collect, collect_s = on_card._collect, []
+
+    def timed_collect():
+        t0 = time.perf_counter()
+        mean = collect()
+        collect_s.append(time.perf_counter() - t0)
+        return mean
+
+    on_card._collect = timed_collect
+    t0 = time.perf_counter()
+    result = on_card.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    assert all(math.isfinite(v) for v in result.values()), result
+    steps = sum(len(ep["rewards"]) for ep in on_card._buffer[-cfg.collect_episodes:])
+    log(card, "rllib DreamerV3 (defaults) on the card: updates, policy_step and one train()",
+        **rows, train_seconds=seconds, collect_s=collect_s[-1], learn_s=seconds - collect_s[-1],
+        env_steps_collected=steps, train=result)
+
+
 def rllib_phase(card: str) -> None:
     """The RLlib core: the seven learners card vs CPU and timed, the
-    offline algorithms card vs CPU and timed, the learner group, and PPO
-    and DQN iterations with env runners."""
+    offline algorithms card vs CPU and timed, the learner group, PPO and DQN
+    iterations with env runners, multi-agent PPO, and DreamerV3."""
     torch.set_float32_matmul_precision("highest")
     assert not torch.backends.cuda.matmul.allow_tf32
     t0 = time.monotonic()
@@ -3057,9 +3353,103 @@ def rllib_phase(card: str) -> None:
     try:
         rl_group_phase(card)
         rl_train_phase(card)
+        t_new = time.monotonic()
+        rl_multi_agent_phase(card)
     finally:
         ray_tpu_torch.shutdown()
-    log(card, "rllib phase wall", seconds=time.monotonic() - t0)
+    rl_dreamer_phase(card)
+    log(card, "rllib phase wall", seconds=time.monotonic() - t0,
+        multi_agent_and_dreamer_seconds=time.monotonic() - t_new)
+
+
+def tune_phase(card: str) -> None:
+    """A Tuner with ASHAScheduler over TUNE_LRS, each trial a PPOLearner
+    on cuda:0 updated TUNE_ITERS times on a fixed batch and reporting its
+    loss: one trial at a time against the same run with CPU learners, then
+    two at a time, timed."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import report
+
+    batch = rl_batch("ppo", 128, (4, 2))
+
+    class StepASHA(tune.ASHAScheduler):
+        """ASHA whose trials wait for its decision on each report before
+        going on (and end on a stop), so a trial's history does not depend
+        on when the tuner's loop polls it."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.cv = threading.Condition()
+            self.lr_of, self.decisions = {}, {}
+
+        def record_config(self, trial_id, config):
+            self.lr_of[trial_id] = config["lr"]
+
+        def on_result(self, trial_id, result):
+            decision = super().on_result(trial_id, result)
+            with self.cv:
+                self.decisions.setdefault(self.lr_of[trial_id], []).append(decision)
+                self.cv.notify_all()
+            return decision
+
+        def wait(self, lr, reports: int) -> str:
+            with self.cv:
+                assert self.cv.wait_for(lambda: len(self.decisions.get(lr, ())) >= reports,
+                                        timeout=60), (lr, reports)
+                return self.decisions[lr][-1]
+
+    def trainable(config):
+        learner = rllib.PPOLearner(rllib.PPOConfig(lr=config["lr"]), 4, 2,
+                                   device=config["device"])
+        if config["device"] is None:
+            assert learner.device == DEVICE
+        for i in range(1, TUNE_ITERS + 1):
+            m = learner.update(batch)
+            report({"loss": m["total_loss"], **m})
+            if config["scheduler"].wait(config["lr"], i) == "STOP":
+                return
+
+    def fit(device, concurrent):
+        sched = StepASHA(metric="loss", mode="min", grace_period=1, reduction_factor=2,
+                         max_t=TUNE_ITERS)
+        return tune.Tuner(trainable,
+                          param_space={"lr": tune.grid_search(TUNE_LRS), "device": device,
+                                       "scheduler": sched},
+                          tune_config=tune.TuneConfig(metric="loss", mode="min", scheduler=sched,
+                                                      max_concurrent_trials=concurrent)).fit()
+
+    before = set(threading.enumerate())
+    t0 = time.monotonic()
+    ray_tpu_torch.init()
+    try:
+        on_card, on_cpu = fit(None, 1), fit("cpu", 1)
+        worst = 0.0
+        for got, want in zip(on_card, on_cpu):
+            assert (got.trial_id, got.state, got.error) == (want.trial_id, want.state, None), (
+                got, want)
+            assert len(got.metrics_history) == len(want.metrics_history), got.trial_id
+            for g, w in zip(got.metrics_history, want.metrics_history):
+                worst = max(worst, assert_close_metrics(g, w, got.trial_id))
+        stopped = [r.trial_id for r in on_card
+                   if r.state == "TERMINATED" and len(r.metrics_history) < TUNE_ITERS]
+        assert stopped, [(r.state, len(r.metrics_history)) for r in on_card]
+        t1 = time.perf_counter()
+        two = fit(None, 2)
+        wall = time.perf_counter() - t1
+        assert all(r.state in ("COMPLETED", "TERMINATED") for r in two), two
+    finally:
+        ray_tpu_torch.shutdown()
+    left = [t.name for t in threading.enumerate()
+            if t not in before and t.is_alive() and not t.daemon]
+    assert not left, left
+    log(card, f"tune: ASHA over {len(TUNE_LRS)} PPO learners on the card, one at a time vs the "
+        "CPU, then two at a time",
+        states=[r.state for r in on_card], reports=[len(r.metrics_history) for r in on_card],
+        stopped=stopped, metrics_max_rel_err=worst,
+        best_lr=on_card.get_best_result().config["lr"],
+        two_at_a_time_wall_s=wall, trials_per_s=len(two) / wall,
+        two_at_a_time_reports=[len(r.metrics_history) for r in two],
+        phase_seconds=time.monotonic() - t0)
 
 
 def main() -> int:
@@ -3147,6 +3537,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     tiny_models_phase(card)
     rllib_phase(card)
+    tune_phase(card)
     log(card, "smoke wall", seconds=time.monotonic() - t_start, serving_seconds=t_serve,
         pd_dp_any_dim_d256_seconds=t_new,
         moe_vit_tiny_seconds=time.monotonic() - t_models, parallel_seconds=t_parallel,

@@ -954,3 +954,243 @@ def test_offline_algorithm_on_card_matches_cpu(cuda, name):
             for a, b in zip(*(optim.tree_leaves(to_numpy_params(getattr(x, attr)))
                               for x in (on_card, on_cpu))):
                 np.testing.assert_allclose(a, b, rtol=0, atol=5e-6, err_msg=attr)
+
+
+@pytest.fixture
+def no_tf32(cuda):
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield cuda
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+class _CueGame:
+    """Two agents, each shown a +/-1 cue and rewarded 1 for the matching
+    action; shared episodes of 16 steps (tests/test_rllib_offline.py's
+    _TargetGame)."""
+
+    possible_agents = ["a0", "a1"]
+
+    def __init__(self):
+        self.rng = np.random.default_rng(0)
+        self.t, self.cues = 0, {}
+
+    def _obs(self):
+        self.cues = {a: int(self.rng.integers(2)) for a in self.possible_agents}
+        return {a: np.asarray([1.0 if c else -1.0, 1.0], np.float32)
+                for a, c in self.cues.items()}
+
+    def reset(self, seed=None):
+        self.t = 0
+        return self._obs(), {}
+
+    def step(self, action_dict):
+        rews = {a: float(action_dict[a] == self.cues[a]) for a in self.possible_agents}
+        self.t += 1
+        return self._obs(), rews, {"__all__": self.t >= 16}, {"__all__": False}, {}
+
+
+@pytest.mark.gpu
+def test_multi_agent_ppo_on_card_matches_cpu(no_tf32, monkeypatch):
+    """MultiAgentPPO made without a device (cuda:0) and on the CPU, one env
+    runner each, two policies: two train() calls give the same episodes to
+    both (numpy runners, the same initial weights), and the learners' metrics
+    within rtol 1e-5 / atol 1e-6 and parameters within 5e-6.
+    ``minibatch_sgd``'s unseeded ``default_rng()`` is seeded alike."""
+    import ray_tpu_torch
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.rllib import optim
+    from ray_tpu_torch.rllib.np_policy import to_numpy_params
+
+    real = np.random.default_rng
+    monkeypatch.setattr(np.random, "default_rng",
+                        lambda seed=None: real(7 if seed is None else seed))
+
+    def build(device):
+        return rllib.MultiAgentPPOConfig(num_env_runners=1, rollout_fragment_length=128) \
+            .environment(_CueGame).multi_agent(policies={"p0": (2, 2), "p1": (2, 2)},
+                                               policy_mapping={"a0": "p0", "a1": "p1"}) \
+            .build(device=device)
+
+    ray_tpu_torch.init()
+    try:
+        algos = {"card": build(None), "cpu": build("cpu")}
+        try:
+            assert all(ln.device == no_tf32 for ln in algos["card"].learners.values())
+            outs = {k: [a.train() for _ in range(2)] for k, a in algos.items()}
+        finally:
+            for a in algos.values():
+                a.stop()
+    finally:
+        ray_tpu_torch.shutdown()
+    for got, want in zip(outs["card"], outs["cpu"]):
+        assert got["episode_reward_mean"] == want["episode_reward_mean"]
+        for pid, metrics in want["policies"].items():
+            for k, v in metrics.items():
+                np.testing.assert_allclose(got["policies"][pid][k], v, rtol=1e-5, atol=1e-6,
+                                           err_msg=f"{pid} {k}")
+    for pid in ("p0", "p1"):
+        for a, b in zip(*(optim.tree_leaves(to_numpy_params(algos[k].learners[pid].params))
+                          for k in ("card", "cpu"))):
+            np.testing.assert_allclose(a, b, rtol=0, atol=5e-6, err_msg=pid)
+
+
+class _NumpyCartPole:
+    """CartPole-v1 in numpy (gymnasium's dynamics; the card machine has no
+    gymnasium)."""
+
+    observation_space = type("Space", (), {"shape": (4,)})
+    action_space = type("Space", (), {"n": 2})
+
+    def reset(self, seed=None):
+        self.rng = np.random.default_rng(seed)
+        self.state, self.t = self.rng.uniform(-0.05, 0.05, 4), 0
+        return self.state.astype(np.float32), {}
+
+    def step(self, action):
+        import math
+
+        x, x_dot, th, th_dot = self.state
+        force = 10.0 if action == 1 else -10.0
+        cos, sin = math.cos(th), math.sin(th)
+        temp = (force + 0.05 * th_dot ** 2 * sin) / 1.1
+        th_acc = (9.8 * sin - cos * temp) / (0.5 * (4.0 / 3.0 - 0.1 * cos ** 2 / 1.1))
+        x_acc = temp - 0.05 * th_acc * cos / 1.1
+        self.state = np.array([x + 0.02 * x_dot, x_dot + 0.02 * x_acc,
+                               th + 0.02 * th_dot, th_dot + 0.02 * th_acc])
+        self.t += 1
+        terminated = bool(abs(self.state[0]) > 2.4 or abs(self.state[2]) > 0.2095)
+        return self.state.astype(np.float32), 1.0, terminated, self.t >= 500, {}
+
+    def close(self):
+        pass
+
+
+@pytest.mark.gpu
+def test_dreamerv3_updates_on_card_match_cpu(no_tf32):
+    """DreamerV3 at the reference test's cut config, made without a device
+    (cuda:0) and on the CPU from the same weights: one world-model and one
+    actor-critic update on the same batch and Gumbel noise draw the same
+    one-hots, the world-model metrics and imagined return within rtol 1e-4
+    (the recurrence's limit against JAX), the rest within rtol 1e-5, and the
+    three trees within 5e-6. The noise seed moves on until every CPU draw's
+    top-2 margin exceeds 1e-5 (a closer draw may part on rounding alone)."""
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.rllib import dreamerv3 as d3
+    from ray_tpu_torch.rllib import optim
+    from ray_tpu_torch.rllib.np_policy import to_numpy_params
+
+    cut = dict(batch_size=4, batch_length=12, horizon=5, deter_dim=32, hidden=32,
+               stoch_groups=4, stoch_classes=4, collect_episodes=2, max_episode_len=60)
+    on_cpu = rllib.DreamerV3Config(env=_NumpyCartPole).training(**cut).build(device="cpu")
+    on_card = rllib.DreamerV3Config(env=_NumpyCartPole).training(**cut).build()
+    assert on_card.device == no_tf32
+    start = [to_numpy_params(t) for t in (on_cpu.wm, on_cpu.actor, on_cpu.critic)]
+    on_cpu._collect()
+    batch = on_cpu._sample_batch()
+    n, categorical = 4 * 12, d3.categorical
+
+    def run(algo, seed):
+        gen = torch.Generator().manual_seed(seed)
+        noise = (d3.gumbel((12, 4, 4, 4), gen, "cpu"), d3.gumbel((5, n, 2), gen, "cpu"),
+                 d3.gumbel((5, n, 4, 4), gen, "cpu"))
+        algo.from_jax(*start)
+        draws, margins = [], []
+
+        def draw(logits, g):
+            top2 = torch.topk((g + logits).detach(), 2, dim=-1).values
+            margins.append(float((top2[..., 0] - top2[..., 1]).min()))
+            draws.append(categorical(logits, g).cpu())
+            return draws[-1].to(logits.device)
+
+        d3.categorical = draw
+        try:
+            aux = algo.wm_update(batch, noise[0])
+            hs, zs = aux.pop("hs"), aux.pop("zs")
+            aux.update(algo.ac_update(hs.reshape(n, -1), zs.reshape(n, -1), *noise[1:]))
+        finally:
+            d3.categorical = categorical
+        return {k: float(v) for k, v in aux.items()}, draws, min(margins)
+
+    seed = next(s for s in range(10) if run(on_cpu, s)[2] > 1e-5)
+    want, cpu_draws, _ = run(on_cpu, seed)
+    got, card_draws, _ = run(on_card, seed)
+    assert len(card_draws) == 22 and all(torch.equal(a, b) for a, b in zip(card_draws, cpu_draws))
+    assert set(got) == set(want)
+    for k in want:
+        tol = dict(rtol=1e-5, atol=1e-6) if k == "critic_loss" else dict(rtol=1e-4, atol=1e-6)
+        np.testing.assert_allclose(got[k], want[k], **tol, err_msg=k)
+    for what in ("wm", "actor", "critic"):
+        for a, b in zip(*(optim.tree_leaves(to_numpy_params(getattr(x, what)))
+                          for x in (on_card, on_cpu))):
+            np.testing.assert_allclose(a, b, rtol=0, atol=5e-6, err_msg=what)
+    out = on_card.train()  # collect on the card, then both updates
+    assert all(np.isfinite(v) for v in out.values()) and out["buffer_episodes"] == 2
+
+
+@pytest.mark.gpu
+def test_tune_trials_on_card_match_cpu(cuda):
+    """A Tuner with ASHA over 3 PPO learners made without a device (cuda:0),
+    one trial at a time, each waiting for the scheduler's decision on every
+    report: the trials' states and metric histories equal those of the same
+    run with CPU learners (metrics within rtol 1e-5 / atol 1e-6), and ASHA
+    stops at least one."""
+    import threading
+
+    import ray_tpu_torch
+    from ray_tpu_torch import rllib, tune
+    from ray_tpu_torch.train import report
+
+    batch = _rl_batch("ppo", 128, (4, 2), 0)
+
+    class StepASHA(tune.ASHAScheduler):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.cv, self.lr_of, self.decisions = threading.Condition(), {}, {}
+
+        def record_config(self, trial_id, config):
+            self.lr_of[trial_id] = config["lr"]
+
+        def on_result(self, trial_id, result):
+            decision = super().on_result(trial_id, result)
+            with self.cv:
+                self.decisions.setdefault(self.lr_of[trial_id], []).append(decision)
+                self.cv.notify_all()
+            return decision
+
+    def trainable(config):
+        sched = config["scheduler"]
+        learner = rllib.PPOLearner(rllib.PPOConfig(lr=config["lr"]), 4, 2,
+                                   device=config["device"])
+        for i in range(1, 5):
+            report({"loss": learner.update(batch)["total_loss"]})
+            with sched.cv:
+                assert sched.cv.wait_for(lambda: len(sched.decisions.get(config["lr"], ())) >= i,
+                                         timeout=60)
+                if sched.decisions[config["lr"]][-1] == "STOP":
+                    return
+
+    def fit(device):
+        sched = StepASHA(metric="loss", mode="min", grace_period=1, reduction_factor=2, max_t=4)
+        return tune.Tuner(trainable, param_space={"lr": tune.grid_search([3e-3, 1e-3, 3e-4]),
+                                                  "device": device, "scheduler": sched},
+                          tune_config=tune.TuneConfig(scheduler=sched,
+                                                      max_concurrent_trials=1)).fit()
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ray_tpu_torch.init()
+    try:
+        on_card, on_cpu = fit(None), fit("cpu")
+    finally:
+        ray_tpu_torch.shutdown()
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert [r.state for r in on_card] == [r.state for r in on_cpu]
+    assert all(r.error is None for r in on_card)
+    for got, want in zip(on_card, on_cpu):
+        assert len(got.metrics_history) == len(want.metrics_history)
+        for g, w in zip(got.metrics_history, want.metrics_history):
+            np.testing.assert_allclose(g["loss"], w["loss"], rtol=1e-5, atol=1e-6)
+    assert any(len(r.metrics_history) < 4 for r in on_card)

@@ -36,7 +36,10 @@ def test_no_module_imports_jax_or_ray_tpu():
                  "rllib.off_policy", "rllib.dqn", "rllib.sac", "rllib.sac_continuous",
                  "rllib.tqc", "parallel", "parallel.mesh", "parallel.sharding",
                  "parallel.collectives", "parallel.ring_attention", "parallel.launch",
-                 "parallel.model_parallel", "parallel.dryrun"):
+                 "parallel.model_parallel", "parallel.dryrun", "rllib.multi_agent",
+                 "rllib.dreamerv3", "tune", "tune.search", "tune.schedulers", "tune.tuner",
+                 "air", "air.callbacks", "train.context", "train.config",
+                 "train.checkpoint"):
         assert f"ray_tpu_torch.{name}" in modules
     script = textwrap.dedent(f"""
         import importlib, sys, threading
@@ -66,6 +69,9 @@ IN_PROCESS_ONLY = ("multiprocessing", "subprocess", "mmap", "ctypes")
     ("experimental", IN_PROCESS_ONLY + ("socket",)),  # pub/sub of this process
     # learners, runners and the replay buffer are thread actors of the runtime
     ("rllib", IN_PROCESS_ONLY + ("jax", "optax", "ray_tpu", "cloudpickle")),
+    # Tune's trials are thread actors too, and its callbacks run in-process
+    ("tune", IN_PROCESS_ONLY + ("jax", "optax", "ray_tpu", "cloudpickle")),
+    ("air", IN_PROCESS_ONLY + ("jax", "optax", "ray_tpu", "cloudpickle")),
 ])
 def test_runtime_and_serve_stay_in_one_process(package, banned):
     """No worker process, shared memory or native library: the runtime, the
